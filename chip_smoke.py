@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card (bit-exact: the outputs
-are integers, so the tolerance is zero), drives the main path -- ``detect``,
-``detect_arrays``, ``detect_batch_arrays``, ``DetectorPipeline`` and
-``detect_strongest_arrays`` on ``device="cuda"`` -- against the golden
-keypoint counts and FNV hashes, checks through the launch counters that the
-main path ran the kernels, and times kernel, plain version and end-to-end
-batch detection at (16, 1080, 1920).
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+per source, all at once), holds each kernel against its plain PyTorch
+version on the card (bit-exact: the outputs are integers, so the tolerance
+is zero), and drives two main paths on ``device="cuda"``, each with the
+launch counters zeroed just before it and read just after:
+
+* detection -- ``detect``, ``detect_arrays``, ``detect_batch_arrays``,
+  ``DetectorPipeline`` and ``detect_strongest_arrays`` -- against the golden
+  keypoint counts and FNV hashes;
+* the front-end -- ``detect_and_describe_batch`` (patched, steered and dense
+  BRIEF routes), ``match`` on consecutive frames and
+  ``detect_and_describe_multiscale`` -- against the port's CPU path and the
+  front-end pins computed with the JAX package.
+
+It then times kernels, plain versions, batch detection, the front-end and
+the patched-vs-dense describe crossover at (16, 1080, 1920).
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -42,7 +50,25 @@ GOLDEN_1080P = [("off", 24130, 0xE063E6EF93A53E63),
 REF_IMAGE_HASH = 0x509FCFE2E529AFCE
 IMAGE_1080P_HASH = 0x49E1A4ECF6FAE94F
 
+#: Front-end pins, as in tests/test_torch_frontend.py: FNV-1a feature hashes
+#: (utils.hashing.hash_features) of the JAX package's detect_and_describe,
+#: SumAbsolute t=16 n=9, keyed (frame, k, oriented) ...
+FEATURE_PINS = {
+    ("reference", 1000, False): 0x9DFC8FB5BDCBF569,
+    ("reference", 1000, True): 0x388726B3B877F7CD,
+    ("reference", 2048, False): 0x9DFC8FB5BDCBF569,
+    ("reference", 2048, True): 0x388726B3B877F7CD,
+    ("1080p", 1000, False): 0x8EE8957A31276C4B,
+    ("1080p", 1000, True): 0xC7C83C1D8AFCFD6A,
+    ("1080p", 2048, False): 0xAF7E3C6B14A54E15,
+    ("1080p", 2048, True): 0xCC085CBB02549D45,
+}
+#: ... and the matches between frames 0 and 1 of the batch below, k=1000,
+#: keyed by oriented.
+MATCH_PIN = {False: 926, True: 926}
+
 BATCH = 16
+SOURCES = ("fast.cu", "brief.cu", "patch.cu")
 
 
 def check(cond: bool, what: str) -> None:
@@ -86,6 +112,43 @@ def time_host(fn, *, repeats: int = 7) -> float:
     return float(np.median(times))
 
 
+def near_half_bins(image: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """(K,) bool: the float64 value atan2(m01, m10) / 2pi * 30 of each
+    keypoint's 31 x 31 intensity-centroid moments lies within 1e-4 of a
+    half-integer, where float32 atan2 may round the orientation bin apart
+    on two devices."""
+    r = 15
+    pad = np.pad(image.astype(np.int64), r)
+    d = np.arange(-r, r + 1)
+    out = np.zeros(len(xy), bool)
+    for i, (x, y) in enumerate(xy):
+        patch = pad[y: y + 2 * r + 1, x: x + 2 * r + 1]
+        v = np.arctan2((patch * d[:, None]).sum(), (patch * d[None, :]).sum()) / (2 * np.pi) * 30
+        out[i] = abs(v - np.floor(v) - 0.5) < 1e-4
+    return out
+
+
+def compare_features(got, want, image: np.ndarray, oriented: bool, what: str) -> int:
+    """CUDA front-end output == the CPU path's: keypoints and descriptor
+    validity exactly, descriptor words at valid slots.  For steered BRIEF a
+    slot may differ only where its orientation lies within 1e-4 bins of a
+    bin edge; returns the number of such slots."""
+    (kps, desc, dvalid), (c_kps, c_desc, c_dvalid) = got, want
+    for name, g, e in zip(("xy", "score", "valid"), kps, c_kps):
+        check(torch.equal(g.cpu(), e), f"{what}: keypoint {name} differ from the CPU path")
+    check(torch.equal(dvalid.cpu(), c_dvalid), f"{what}: descriptor validity differs")
+    differ = (desc.cpu().numpy() != c_desc.numpy()).any(-1) & c_dvalid.numpy()
+    bad = differ & ~near_half_bins(image, c_kps.xy.numpy()) if oriented else differ
+    check(not bad.any(), f"{what}: {int(bad.sum())} valid descriptors differ from the CPU path")
+    return int(differ.sum())
+
+
+def feature_hash(kps, desc, dvalid) -> int:
+    from feature_detector_fast_tpu_torch.utils.hashing import hash_features
+
+    return hash_features(kps.xy.cpu(), kps.score.cpu(), kps.valid.cpu(), desc.cpu(), dvalid.cpu())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
@@ -95,7 +158,10 @@ def main() -> int:
     import feature_detector_fast_tpu_torch as port
     from feature_detector_fast_tpu_torch import api, serving
     from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
-    from feature_detector_fast_tpu_torch.ops import compact, fast, fast_cuda
+    from feature_detector_fast_tpu_torch.models import brief, match, pyramid
+    from feature_detector_fast_tpu_torch.models.brief import Keypoints
+    from feature_detector_fast_tpu_torch.ops import (
+        brief_cuda, compact, fast, fast_cuda, patch_cuda)
     from feature_detector_fast_tpu_torch.utils import cuda_build
     from feature_detector_fast_tpu_torch.utils.hashing import hash_image, hash_keypoints
     from feature_detector_fast_tpu_torch.utils.image import load_luma8
@@ -111,12 +177,16 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    fast_cuda.load_library()
-    log(f"build: csrc/fast.cu in {time.perf_counter() - t0:.2f} s "
+    cuda_build.build_all(SOURCES)
+    for lib in (fast_cuda, brief_cuda, patch_cuda):
+        lib.load_library()
+    log(f"build: csrc/{{{','.join(SOURCES)}}} in {time.perf_counter() - t0:.2f} s, in parallel "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
-    for line in cuda_build.build_log("fast.cu").splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for source in SOURCES:
+        used = [line.strip() for line in cuda_build.build_log(source).splitlines()
+                if "Used" in line or "spill" in line]
+        for line in sorted(set(used)):
+            log(f"  ptxas {source}: {line}")
 
     modes = list(NonmaxMode)
     ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
@@ -164,9 +234,46 @@ def main() -> int:
         log(f"kernel vs plain: {name} {tuple(arr.shape)}: {n_cfg} configs "
             f"(3 modes x counts 9..16 x t {thresholds}) bit-exact, words and dense")
 
-    # -- 3. the main path, counted -----------------------------------------
-    for key in fast_cuda.LAUNCHES:
-        fast_cuda.LAUNCHES[key] = 0
+    # -- 2b. the front-end kernels against their plain versions ------------
+    max_err.update(brief_words=0, extract_windows=0, extract_patches=0)
+
+    def err(a: torch.Tensor, b: torch.Tensor) -> int:
+        torch.cuda.synchronize()
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+    for name, arr in inputs.items():
+        if min(arr.shape[1:]) < 35:
+            continue
+        imgs = torch.from_numpy(arr).to(dev)
+        b, h, w = arr.shape
+        e_b = err(brief_cuda.describe_words(imgs), brief_cuda.describe_words_plain(imgs))
+        # 997 slots (a prime): in range, on the border and beyond it.
+        xy = np.stack([rng.integers(-20, w + 20, (b, 997)), rng.integers(-20, h + 20, (b, 997))], -1)
+        xy[:, :4] = [[0, 0], [w - 1, h - 1], [17, h - 18], [w - 16, 15]]
+        xy = torch.from_numpy(xy.astype(np.int32)).to(dev)
+        planes = brief.box_blur5(imgs)
+        e_w = err(patch_cuda.extract_windows_fused(imgs, xy), patch_cuda.extract_windows_plain(imgs, xy))
+        e_p = err(patch_cuda.extract_patches(planes, xy), patch_cuda.extract_patches_plain(planes, xy))
+        for key, e in (("brief_words", e_b), ("extract_windows", e_w), ("extract_patches", e_p)):
+            max_err[key] = max(max_err[key], e)
+        check(e_b == 0 and e_w == 0 and e_p == 0,
+              f"front-end kernel != plain on {name}: brief words err {e_b}, windows err {e_w}, "
+              f"patches err {e_p}")
+        log(f"kernel vs plain: {name} {tuple(arr.shape)}: BRIEF words on every pixel, windows and "
+            f"patches at 997 fuzzed slots per frame, bit-exact")
+
+    # extract_patches runs on no main path (in the JAX package only the
+    # tests call it); its launches are the kernel phase's.
+    patches_launches = patch_cuda.LAUNCHES["extract_patches"]
+    counters = (fast_cuda.LAUNCHES, brief_cuda.LAUNCHES, patch_cuda.LAUNCHES)
+
+    def zero_counts() -> None:
+        for counts in counters:
+            for key in counts:
+                counts[key] = 0
+
+    # -- 3. the detection main path, counted -------------------------------
+    zero_counts()
 
     for (mode, n, h), (_, n_1080, h_1080) in zip(GOLDEN_REF, GOLDEN_1080P):
         cfg = Config(16, 9, NonmaxMode(mode))
@@ -219,6 +326,71 @@ def main() -> int:
     check(launches["words"] > 0, "the main path never launched the words kernel")
     check(launches["dense"] > 0, "the main path never launched the dense kernel")
 
+    # -- 3b. the front-end main path, counted ------------------------------
+    zero_counts()
+    fe = {}
+    # k=16384 lies above brief._DENSE_K_MIN: the dense route.  Its 15
+    # distance matrices would take 16 GB, so it is not matched.
+    for k, oriented in ((1000, False), (1000, True), (2048, False), (16384, False)):
+        kps, desc, dvalid = brief.detect_and_describe_batch(batch, 16, 9, k, oriented)
+        n_match = None
+        if k <= 2048:
+            m = match.match(desc[:-1], dvalid[:-1], desc[1:], dvalid[1:])  # consecutive frames
+            n_match = (m.idx_b >= 0).sum(-1)
+        fe[(k, oriented)] = (kps, desc, dvalid, n_match)
+    multi = pyramid.detect_and_describe_multiscale(g1080, 16, 9, 1000)
+    singles = {("reference", k, o): brief.detect_and_describe(ref, 16, 9, k, o)
+               for k in (1000, 2048) for o in (False, True)}
+    singles[("1080p", 2048, True)] = brief.detect_and_describe(g1080, 16, 9, 2048, True)
+    torch.cuda.synchronize()
+    fe_launches = {"fdf_fast_dense": fast_cuda.LAUNCHES["dense"],
+                   "fdf_brief_words": brief_cuda.LAUNCHES["brief_words"],
+                   "fdf_extract_windows": patch_cuda.LAUNCHES["extract_windows"]}
+    log(f"front-end main path launches: {fe_launches}")
+    for kname, n in fe_launches.items():
+        check(n > 0, f"the front-end main path never launched {kname}")
+
+    for (k, oriented), (kps, desc, dvalid, n_match) in fe.items():
+        check(kps.xy.shape == (BATCH, k, 2) and desc.shape == (BATCH, k, brief.WORDS)
+              and dvalid.shape == (BATCH, k) and desc.device.type == "cuda"
+              and desc.dtype == torch.int32, f"front-end output shapes at k={k}")
+        route = "patched" if oriented or k <= brief._DENSE_K_MIN else "dense"
+        log(f"front-end: detect_and_describe_batch {batch.shape} k={k} "
+            f"{'oriented' if oriented else 'plain'} ({route} route): "
+            f"{int(kps.valid.sum())} keypoints, {int(dvalid.sum())} described"
+            + (f"; matches of consecutive frames {n_match.tolist()}" if n_match is not None else ""))
+        singles[("1080p", k, oriented)] = (Keypoints(*(f[0] for f in kps)), desc[0], dvalid[0])
+        flips = 0
+        for i in (0, 1):  # frames 0 and 1 against the CPU path
+            cpu = brief.detect_and_describe(batch[i], 16, 9, k, oriented, device="cpu")
+            flips += compare_features((Keypoints(*(f[i] for f in kps)), desc[i], dvalid[i]),
+                                      cpu, batch[i], oriented, f"1080p frame {i}, k={k}")
+        if k == 1000 and not flips:
+            check(int(n_match[0]) == MATCH_PIN[oriented],
+                  f"matches of frames 0 and 1: {int(n_match[0])}, pinned {MATCH_PIN[oriented]}")
+        log(f"front-end: frames 0 and 1 equal the CPU path ({flips} steered slots on a bin "
+            f"edge differ)")
+
+    for key in sorted(FEATURE_PINS, key=str):
+        image = ref if key[0] == "reference" else g1080
+        cpu = brief.detect_and_describe(image, 16, 9, key[1], key[2], device="cpu")
+        check(feature_hash(*cpu) == FEATURE_PINS[key], f"CPU path hash {key} != pin")
+        flips = compare_features(singles[key], cpu, image, key[2], str(key))
+        check(flips > 0 or feature_hash(*singles[key]) == FEATURE_PINS[key],
+              f"CUDA path hash {key} != pin")
+        log(f"front-end: {key}: CUDA path == CPU path == JAX pin {FEATURE_PINS[key]:#x}"
+            + (f" ({flips} steered slots on a bin edge differ)" if flips else ""))
+
+    cpu_multi = pyramid.detect_and_describe_multiscale(g1080, 16, 9, 1000, device="cpu")
+    for name in ("xy0", "xy", "level", "score", "valid"):
+        check(torch.equal(getattr(multi, name).cpu(), getattr(cpu_multi, name)),
+              f"multiscale {name} differs from the CPU path")
+    v = cpu_multi.valid
+    check(torch.equal(multi.desc.cpu()[v], cpu_multi.desc[v]), "multiscale descriptors differ")
+    log(f"front-end: detect_and_describe_multiscale(1080p, k=1000, 4 levels): "
+        f"{multi.xy.shape[0]} slots, {int(v.sum())} valid, per level "
+        f"{torch.bincount(multi.level.cpu()[v]).tolist()}, equal to the CPU path")
+
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
     imgs = torch.from_numpy(batch).to(dev)
     timing = {}
@@ -255,6 +427,50 @@ def main() -> int:
         log(f"timing {mode.value} ({BATCH}, 1080, 1920), ms per frame: "
             + ", ".join(f"{k[:-3]} {v / BATCH:.4f}" for k, v in r.items()))
 
+    # -- 4b. front-end timing at (16, 1080, 1920), k=1000 ------------------
+    kps = fe[(1000, False)][0]
+    blurred = brief.box_blur5(imgs)
+    ft = {
+        "brief_words_ms": time_cuda(lambda: brief_cuda.describe_words(imgs)),
+        "plain_brief_words_ms": time_cuda(lambda: brief_cuda.describe_words_plain(imgs),
+                                          repeats=3, inner=1),
+        "extract_windows_ms": time_cuda(lambda: patch_cuda.extract_windows_fused(imgs, kps.xy)),
+        "plain_extract_windows_ms": time_cuda(
+            lambda: patch_cuda.extract_windows_plain(imgs, kps.xy), repeats=5, inner=2),
+        "extract_patches_ms": time_cuda(lambda: patch_cuda.extract_patches(blurred, kps.xy)),
+        "plain_extract_patches_ms": time_cuda(
+            lambda: patch_cuda.extract_patches_plain(blurred, kps.xy), repeats=5, inner=2),
+    }
+    for oriented in (False, True):
+        tag = "oriented" if oriented else "plain"
+
+        def frontend(oriented=oriented, images=imgs):
+            return brief.detect_and_describe_batch(images, 16, 9, 1000, oriented)
+
+        def frontend_match(oriented=oriented):
+            _, desc, dvalid = frontend(oriented)
+            return match.match(desc[:-1], dvalid[:-1], desc[1:], dvalid[1:])
+
+        ft[f"frontend_{tag}_ms"] = time_cuda(frontend)
+        ft[f"frontend_{tag}_match_ms"] = time_cuda(frontend_match)
+        # host array in, descriptors back on the host
+        ft[f"frontend_{tag}_e2e_ms"] = time_host(
+            lambda: [t.cpu() for t in frontend(images=batch)[1:]])
+    log(f"timing front-end ({BATCH}, 1080, 1920), k=1000, ms per frame: "
+        + ", ".join(f"{k[:-3]} {v / BATCH:.4f}" for k, v in ft.items()))
+
+    # The describe crossover that sets brief._DENSE_K_MIN.
+    mask, score = fast_cuda.detect_dense(imgs, 16, 9, NonmaxMode.SUM_ABSOLUTE)
+    crossover = {}
+    for k in (512, 1024, 1536, 4096, 8192, 16384):
+        kps_k = brief.select_topk(mask, score, k)
+        crossover[k] = {"patched_ms": time_cuda(lambda: brief.describe_patched(imgs, kps_k)),
+                        "dense_ms": time_cuda(lambda: brief.describe_dense(imgs, kps_k))}
+        log(f"timing describe crossover k={k}, ms per frame: patched "
+            f"{crossover[k]['patched_ms'] / BATCH:.4f}, dense {crossover[k]['dense_ms'] / BATCH:.4f}")
+    log(json.dumps({"frontend_ms_per_batch": ft, "describe_crossover_ms_per_batch": crossover,
+                    "dense_k_min": brief._DENSE_K_MIN}))
+
     rows = []
     for kname, key, line in (("fdf_fast_words", "words", 949), ("fdf_fast_dense", "dense", 621)):
         rows.append({
@@ -270,6 +486,27 @@ def main() -> int:
             "ms_by_mode": {m: timing[m][f"{key}_ms"] for m in timing},
             "plain_ms_by_mode": {m: timing[m][f"plain_{key}_ms"] for m in timing},
         })
+    fe_at = f"one call at the {BATCH} x 1000 keypoints of the k=1000 front-end, ({BATCH}, 1080, 1920)"
+    for kname, key, source, replaces, n, at in (
+            ("fdf_brief_words", "brief_words", "brief.cu", "brief_pallas.py:47",
+             fe_launches["fdf_brief_words"], f"one ({BATCH}, 1080, 1920) call, every pixel"),
+            ("fdf_extract_windows", "extract_windows", "patch.cu", "patch_pallas.py:147",
+             fe_launches["fdf_extract_windows"], fe_at),
+            ("fdf_extract_patches", "extract_patches", "patch.cu", "patch_pallas.py:69",
+             patches_launches, fe_at + ", on the blurred frames")):
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"feature_detector_fast_tpu_torch/csrc/{source}",
+            "replaces": f"feature_detector_fast_tpu/ops/{replaces}",
+            "launches": n,
+            "max_abs_err": max_err[key],
+            "ms": ft[f"{key}_ms"],
+            "plain_ms": ft[f"plain_{key}_ms"],
+            "timed_at": at,
+        })
+    rows[3]["also_replaces"] = "feature_detector_fast_tpu/ops/patch_pallas.py:123"
+    rows[4]["launches_counted_in"] = "the kernel phase (no main path runs extract_patches)"
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,9 @@ shared library with a plain C interface, on first use, and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries are cached in the package's ``_build/`` directory keyed by the
 hash of the source and the flags, so an edit rebuilds; the write is atomic
-(tmp file + ``os.replace``), so concurrent builds are harmless.  A failed
-build raises: there is no fallback.
+(tmp file + ``os.replace``), so concurrent builds are harmless.
+:func:`build_all` starts one ``nvcc`` per missing library at once.  A
+failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import functools
 import hashlib
 import os
 import subprocess
+from typing import List, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -39,31 +41,45 @@ def nvcc_path() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(source: str) -> str:
-    """Compile ``csrc/<source>`` to a cached shared library; returns its path.
-
-    The compiler's output (including ``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``.  Raises RuntimeError if nvcc fails."""
-    src = os.path.join(SRC_DIR, source)
-    with open(src, "rb") as f:
+def _library_path(source: str) -> str:
+    with open(os.path.join(SRC_DIR, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    name = os.path.splitext(source)[0]
-    so_path = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.tmp{os.getpid()}"
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, src, "-o", tmp],
-            capture_output=True, text=True,
-        )
+    return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_{digest}.so")
+
+
+def build_all(sources: Sequence[str]) -> List[str]:
+    """Compile each ``csrc/<source>`` whose cached library is missing, one
+    ``nvcc`` per source, all started together; returns the libraries' paths.
+
+    The compiler's output (including ``-Xptxas -v``) is kept beside each
+    library as ``<name>.log``.  Raises RuntimeError if an nvcc fails."""
+    paths = [_library_path(s) for s in sources]
+    jobs = []
+    for source, so_path in zip(sources, paths):
+        if not os.path.exists(so_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so_path}.tmp{os.getpid()}"
+            cmd = [nvcc_path(), *NVCC_FLAGS, os.path.join(SRC_DIR, source), "-o", tmp]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((source, so_path, tmp, proc))
+    failed = []
+    for source, so_path, tmp, proc in jobs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
+            failed.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{out}")
+            continue
         with open(so_path[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(out)
         os.replace(tmp, so_path)
-    return so_path
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` to a cached shared library; returns its path."""
+    return build_all([source])[0]
 
 
 @functools.lru_cache(maxsize=None)

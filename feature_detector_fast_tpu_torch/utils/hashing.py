@@ -47,3 +47,22 @@ def hash_keypoints(points: Iterable[Tuple[int, int]]) -> int:
     for x, y in points:
         buf += struct.pack("<II", int(x), int(y))
     return fnv1a(bytes(buf))
+
+
+def hash_features(xy, score, valid, desc, desc_valid) -> int:
+    """Golden hash of one frame's front-end output (numpy-convertible
+    arrays: xy (K, 2), score (K,), valid (K,), desc (K, WORDS) of 32-bit
+    words, desc_valid (K,)).  Each valid slot, in slot order, contributes
+    x, y, score, desc_valid and its WORDS descriptor words as little-endian
+    u32s; the words of a slot whose descriptor is invalid count as zeros,
+    since every route leaves garbage there."""
+    valid = np.asarray(valid, bool)
+    dvalid = np.asarray(desc_valid, bool)
+    words = np.ascontiguousarray(np.asarray(desc)).view(np.uint32)
+    rows = np.concatenate([
+        np.asarray(xy).astype(np.uint32),
+        np.asarray(score).astype(np.uint32)[:, None],
+        dvalid.astype(np.uint32)[:, None],
+        np.where(dvalid[:, None], words, 0).astype(np.uint32),
+    ], axis=1)
+    return fnv1a_array(rows[valid])

@@ -183,7 +183,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import feature_detector_fast_tpu_torch\n"
         "from feature_detector_fast_tpu_torch import api, cli, serving\n"
-        "from feature_detector_fast_tpu_torch.ops import compact, fast, fast_cuda, windows\n"
+        "from feature_detector_fast_tpu_torch.models import brief, match, pyramid\n"
+        "from feature_detector_fast_tpu_torch.ops import brief_cuda, compact, fast, fast_cuda\n"
+        "from feature_detector_fast_tpu_torch.ops import patch_cuda, windows\n"
         "from feature_detector_fast_tpu_torch.utils import cuda_build, hashing, image\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'feature_detector_fast_tpu')]\n"

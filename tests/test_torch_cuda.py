@@ -1,11 +1,11 @@
-"""The CUDA kernel on the card: marked ``cuda``, skipped where there is none.
+"""The CUDA kernels on the card: marked ``cuda``, skipped where there is none.
 
 Run them on a machine with an NVIDIA GPU (which need not have JAX, so the
 JAX-side conftest is left out):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
-Kernel and plain version agree exactly (integer outputs: tolerance zero).
+Kernels and plain versions agree exactly (integer outputs: tolerance zero).
 """
 
 import os
@@ -16,7 +16,8 @@ import torch
 
 import feature_detector_fast_tpu_torch as port
 from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
-from feature_detector_fast_tpu_torch.ops import compact, fast, fast_cuda
+from feature_detector_fast_tpu_torch.models import brief
+from feature_detector_fast_tpu_torch.ops import brief_cuda, compact, fast, fast_cuda, patch_cuda
 from feature_detector_fast_tpu_torch.utils.hashing import hash_keypoints
 from feature_detector_fast_tpu_torch.utils.image import load_luma8
 
@@ -67,3 +68,67 @@ def test_rejects_non_contiguous(device):
     imgs = torch.zeros((1, 64, 48), dtype=torch.uint8, device=device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fast_cuda.detect_words(imgs, 16, 9, NonmaxMode.OFF)
+
+
+def test_brief_words_matches_plain(device):
+    """The dense BRIEF kernel == its plain version on every pixel, border
+    included, and counts one launch per call."""
+    rng = np.random.default_rng(11)
+    for shape in [(2, 61, 157), (2, 256, 320), (1, 5, 7), (3, 40, 33)]:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
+        before = brief_cuda.LAUNCHES["brief_words"]
+        got = brief_cuda.describe_words(imgs)
+        torch.cuda.synchronize()
+        assert brief_cuda.LAUNCHES["brief_words"] == before + 1
+        assert torch.equal(got, brief_cuda.describe_words_plain(imgs)), shape
+
+
+def test_patch_kernels_match_plain(device):
+    """Both patch kernels == their plain versions for coordinates anywhere
+    (in range, on the border, beyond it) and K not a multiple of anything."""
+    rng = np.random.default_rng(12)
+    for b, h, w in [(2, 61, 157), (2, 256, 320), (1, 35, 35)]:
+        imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w), np.uint8)).to(device)
+        planes = torch.from_numpy(rng.integers(-2**31, 2**31, (b, h, w)).astype(np.int32)).to(device)
+        xy = np.stack([rng.integers(-20, w + 20, (b, 37)), rng.integers(-20, h + 20, (b, 37))], -1)
+        xy = torch.from_numpy(xy.astype(np.int32)).to(device)
+        before = dict(patch_cuda.LAUNCHES)
+        wins = patch_cuda.extract_windows_fused(imgs, xy)
+        patches = patch_cuda.extract_patches(planes, xy)
+        torch.cuda.synchronize()
+        assert patch_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+        assert torch.equal(wins, patch_cuda.extract_windows_plain(imgs, xy))
+        assert torch.equal(patches, patch_cuda.extract_patches_plain(planes, xy))
+
+
+@pytest.mark.parametrize("oriented", [False, True], ids=["plain", "oriented"])
+@pytest.mark.parametrize("k", [128, 16384])
+def test_frontend_cuda_matches_cpu(device, k, oriented):
+    """detect_and_describe on the card (patched route for k=128 and every
+    oriented call, dense route for k=16384 > brief._DENSE_K_MIN) == the CPU
+    path: keypoints and validity exactly, descriptors at valid slots."""
+    ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
+    before = (fast_cuda.LAUNCHES["dense"], brief_cuda.LAUNCHES["brief_words"],
+              patch_cuda.LAUNCHES["extract_windows"])
+    kps, desc, dvalid = brief.detect_and_describe(ref, 16, 9, k, oriented, device=device)
+    torch.cuda.synchronize()
+    dense = not oriented and k > brief._DENSE_K_MIN
+    assert (fast_cuda.LAUNCHES["dense"], brief_cuda.LAUNCHES["brief_words"],
+            patch_cuda.LAUNCHES["extract_windows"]) == (
+        before[0] + 1, before[1] + dense, before[2] + (not dense))
+    c_kps, c_desc, c_dvalid = brief.detect_and_describe(ref, 16, 9, k, oriented, device="cpu")
+    for g, e in zip(kps, c_kps):
+        assert torch.equal(g.cpu(), e)
+    assert torch.equal(dvalid.cpu(), c_dvalid) and int(c_dvalid.sum()) > 50
+    assert torch.equal(desc.cpu()[c_dvalid], c_desc[c_dvalid])
+
+
+def test_new_kernels_reject_non_contiguous(device):
+    imgs = torch.zeros((1, 64, 48), dtype=torch.uint8, device=device).transpose(1, 2)
+    xy = torch.zeros((1, 3, 2), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        brief_cuda.describe_words(imgs)
+    with pytest.raises(ValueError, match="contiguous"):
+        patch_cuda.extract_windows_fused(imgs, xy)
+    with pytest.raises(ValueError, match="contiguous"):
+        patch_cuda.extract_patches(imgs.to(torch.int32), xy)
