@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
 version on the card (bit-exact: the outputs are integers, so the tolerance
-is zero), and drives two main paths on ``device="cuda"``, each with the
+is zero), and drives three main paths on ``device="cuda"``, each with the
 launch counters zeroed just before it and read just after:
 
 * detection -- ``detect``, ``detect_arrays``, ``detect_batch_arrays``,
@@ -15,10 +15,17 @@ launch counters zeroed just before it and read just after:
 * the front-end -- ``detect_and_describe_batch`` (patched, steered and dense
   BRIEF routes), ``match`` on consecutive frames and
   ``detect_and_describe_multiscale`` -- against the port's CPU path and the
-  front-end pins computed with the JAX package.
+  front-end pins computed with the JAX package;
+* the multi-device front-end on ``cuda:0`` repeated (the machine has one
+  card) -- row-sharded ``detect_arrays_rows_sharded`` / ``detect_rows_sharded``
+  at 1080p, 4K and 8192 px wide, ``detect_batch_sharded`` over 4 shards and
+  the 3-stage ``frontend_pipelined`` -- against the golden pins and the
+  single-device paths.
 
-It then times kernels, plain versions, batch detection, the front-end and
-the patched-vs-dense describe crossover at (16, 1080, 1920).
+It then times kernels, plain versions, batch detection, the front-end,
+the patched-vs-dense describe crossover at (16, 1080, 1920), and the
+row-shard kernels and multi-device paths against their single-device
+counterparts.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -162,6 +169,8 @@ def main() -> int:
     from feature_detector_fast_tpu_torch.models.brief import Keypoints
     from feature_detector_fast_tpu_torch.ops import (
         brief_cuda, compact, fast, fast_cuda, patch_cuda)
+    from feature_detector_fast_tpu_torch.parallel import (
+        frontend as dp, mesh as meshlib, pipeline, spatial)
     from feature_detector_fast_tpu_torch.utils import cuda_build
     from feature_detector_fast_tpu_torch.utils.hashing import hash_image, hash_keypoints
     from feature_detector_fast_tpu_torch.utils.image import load_luma8
@@ -261,6 +270,45 @@ def main() -> int:
               f"patches err {e_p}")
         log(f"kernel vs plain: {name} {tuple(arr.shape)}: BRIEF words on every pixel, windows and "
             f"patches at 997 fuzzed slots per frame, bit-exact")
+
+    # -- 2c. the row-shard kernels against their plain version -------------
+    max_err.update(words_tiles=0, dense_tiles=0)
+    tiles_inputs = {"golden_1080x1920": g1080,
+                    "rand_1037x1931": rng.integers(0, 256, (1037, 1931), np.uint8)}
+
+    def check_tiles(name, ext, row0, halo, h, w, mode, count) -> None:
+        kw = dict(height=h, width=w, halo=halo)
+        p_mask, p_score = fast.detect_dense_tiles(ext, row0.tolist(), 16, count, mode, **kw)
+        e_w = err(fast_cuda.detect_words_tiles(ext, row0, 16, count, mode, **kw),
+                  compact.pack_mask_words(p_mask))
+        k_mask, k_score = fast_cuda.detect_dense_tiles(ext, row0, 16, count, mode, **kw)
+        e_d = max(err(k_mask, p_mask), err(k_score, p_score))
+        max_err["words_tiles"] = max(max_err["words_tiles"], e_w)
+        max_err["dense_tiles"] = max(max_err["dense_tiles"], e_d)
+        check(e_w == 0 and e_d == 0,
+              f"tiles kernel != plain on {name}, {mode.value}, count {count}: "
+              f"words err {e_w}, dense err {e_d}")
+
+    for name, arr in tiles_inputs.items():
+        h, w = arr.shape
+        for shards in (2, 8):
+            rows = spatial.shard_rows(h, shards)
+            [(_, ext, row0)] = spatial.shard_slabs(torch.from_numpy(arr), [dev] * shards, rows)
+            for mode in modes:
+                for count in range(9, 17):
+                    check_tiles(name, ext, row0, spatial.HALO, h, w, mode, count)
+            log(f"tiles kernels vs plain: {name} in {shards} shards of {rows} rows "
+                f"(padded to {shards * rows}), halo {spatial.HALO}: 3 modes x counts 9..16, "
+                f"bit-exact, words and dense")
+    # The JAX package's 64-row halo, on 1080p in 8 shards.
+    rows = spatial.shard_rows(1080, 8)
+    wide = torch.nn.functional.pad(torch.from_numpy(g1080), (0, 0, 64, 64 + 8 * rows - 1080))
+    ext64 = torch.stack([wide[s * rows:s * rows + rows + 128] for s in range(8)]).to(dev)
+    row0_64 = torch.arange(8, dtype=torch.int32, device=dev) * rows
+    for mode in modes:
+        check_tiles("golden_1080x1920, halo 64", ext64, row0_64, 64, 1080, 1920, mode, 9)
+    log("tiles kernels vs plain: golden_1080x1920 in 8 shards with 64-row halos: 3 modes, "
+        "count 9, bit-exact")
 
     # extract_patches runs on no main path (in the JAX package only the
     # tests call it); its launches are the kernel phase's.
@@ -391,6 +439,99 @@ def main() -> int:
         f"{multi.xy.shape[0]} slots, {int(v.sum())} valid, per level "
         f"{torch.bincount(multi.level.cpu()[v]).tolist()}, equal to the CPU path")
 
+    # -- 3c. the multi-device front-end main path, counted -----------------
+    # One card: every mesh repeats cuda:0, so each row-shard seam and each
+    # pipeline hop still meets the kernels and the stream ordering.
+    mesh8 = meshlib.make_mesh(devices=[dev] * 8)
+    mesh4 = meshlib.make_mesh(devices=[dev] * 4)
+    pipe_mesh = pipeline.make_pipe_mesh([dev] * 3)
+    g4k = np.tile(g1080, (2, 2))
+    g8192 = np.ascontiguousarray(np.tile(g1080, (1, 5))[:, :8192])
+    imgs = torch.from_numpy(batch).to(dev)
+
+    def sequential_frontend(oriented: bool):
+        out, prev = [], None
+        for frame in imgs:
+            kps, desc, dvalid = brief.detect_and_describe(frame, 16, 9, 1000, oriented)
+            m = match.match(desc, dvalid, *prev) if prev is not None else None
+            out.append((kps, desc, dvalid, m))
+            prev = (desc, dvalid)
+        return out
+
+    # The single-device references, before the counters are zeroed.
+    ref_lists = {(size, mode): api.detect_arrays(frame, Config(16, 9, mode))
+                 for size, frame in (("4K", g4k), ("8192w", g8192)) for mode in modes}
+    ref_dense = {mode: fast_cuda.detect_dense(torch.from_numpy(g1080)[None].to(dev), 16, 9, mode)
+                 for mode in modes}
+    ref_batch = {mode: fast_cuda.detect_dense(imgs, 16, 9, mode) for mode in modes}
+    ref_front = {o: sequential_frontend(o) for o in (False, True)}
+    torch.cuda.synchronize()
+
+    zero_counts()
+    got_lists, got_dense, got_batch, got_front = {}, {}, {}, {}
+    for mode in modes:
+        got_lists[("1080p", mode)] = spatial.detect_arrays_rows_sharded(
+            g1080, 16, 9, mode, mesh=mesh8)
+        got_dense[mode] = spatial.detect_rows_sharded(g1080, 16, 9, mode, mesh=mesh8)
+        for size, frame in (("4K", g4k), ("8192w", g8192)):
+            got_lists[(size, mode)] = spatial.detect_arrays_rows_sharded(
+                frame, 16, 9, mode, mesh=mesh8)
+        got_batch[mode] = dp.detect_batch_sharded(imgs, 16, 9, mode, mesh=mesh4)
+    for oriented in (False, True):
+        got_front[oriented] = pipeline.frontend_pipelined(imgs, 16, 9, 1000, mesh=pipe_mesh,
+                                                          oriented=oriented)
+    torch.cuda.synchronize()
+    mc_launches = {"fdf_fast_dense_tiles": fast_cuda.LAUNCHES["dense_tiles"],
+                   "fdf_fast_words_tiles": fast_cuda.LAUNCHES["words_tiles"],
+                   "fdf_fast_dense": fast_cuda.LAUNCHES["dense"],
+                   "fdf_extract_windows": patch_cuda.LAUNCHES["extract_windows"]}
+    log(f"multi-device main path launches: {mc_launches}")
+    for kname, n in mc_launches.items():
+        check(n > 0, f"the multi-device main path never launched {kname}")
+
+    for (mode, n, h) in GOLDEN_1080P:
+        xy = got_lists[("1080p", NonmaxMode(mode))]
+        check(len(xy) == n and hash_keypoints(xy) == h,
+              f"detect_arrays_rows_sharded(1080p, {mode}, 8 shards): {len(xy)} keypoints, "
+              f"hash {hash_keypoints(xy):#x}")
+    for mode in modes:
+        mask, score = got_dense[mode]
+        check(torch.equal(mask, ref_dense[mode][0][0].bool())
+              and torch.equal(score, ref_dense[mode][1][0]),
+              f"detect_rows_sharded(1080p, {mode.value}) != whole-frame detect_dense")
+        for size in ("4K", "8192w"):
+            check(np.array_equal(got_lists[(size, mode)], ref_lists[(size, mode)]),
+                  f"detect_arrays_rows_sharded({size}, {mode.value}) != detect_arrays")
+        mask, score = dp.gather(got_batch[mode], dev)
+        check(torch.equal(mask, ref_batch[mode][0].bool()) and torch.equal(score, ref_batch[mode][1]),
+              f"detect_batch_sharded(4 shards, {mode.value}) != detect_dense of the batch")
+        log(f"multi-device: {mode.value}: row-sharded 1080p (8 shards) "
+            f"{len(got_lists[('1080p', mode)])} keypoints with the golden hash, "
+            f"mask/score == whole frame; 4K {len(ref_lists[('4K', mode)])} and 8192w "
+            f"{len(ref_lists[('8192w', mode)])} keypoints == detect_arrays; "
+            f"detect_batch_sharded (16, 1080, 1920) over 4 shards == detect_dense")
+    for oriented, stream in got_front.items():
+        tag = "steered" if oriented else "plain"
+        for i, (kps, desc, dvalid, m) in enumerate(ref_front[oriented]):
+            same = (torch.equal(stream.kp_xy[i], kps.xy) and torch.equal(stream.kp_score[i], kps.score)
+                    and torch.equal(stream.kp_valid[i], kps.valid)
+                    and torch.equal(stream.dvalid[i], dvalid)
+                    and torch.equal(stream.desc[i][dvalid], desc[dvalid]))
+            if m is None:
+                same = same and bool((stream.match_idx[i] == -1).all()
+                                     and (stream.match_dist[i] == brief.BITS + 1).all())
+            else:
+                same = (same and torch.equal(stream.match_idx[i], m.idx_b)
+                        and torch.equal(stream.match_dist[i], m.dist))
+            check(same, f"frontend_pipelined ({tag}) != sequential front-end at frame {i}")
+        pinned = match.match(stream.desc[0], stream.dvalid[0], stream.desc[1], stream.dvalid[1])
+        n01 = int((pinned.idx_b >= 0).sum())
+        check(n01 == MATCH_PIN[oriented], f"pipelined frames 0/1: {n01} matches, "
+                                          f"pinned {MATCH_PIN[oriented]}")
+        log(f"multi-device: frontend_pipelined {tag} (3 stages, 3 streams on one card), k=1000: "
+            f"{BATCH} frames == sequential detect_and_describe + match; matches per frame "
+            f"{(stream.match_idx >= 0).sum(-1).tolist()}; frames 0/1 match {n01} (pin)")
+
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
     imgs = torch.from_numpy(batch).to(dev)
     timing = {}
@@ -400,7 +541,7 @@ def main() -> int:
         words = fast_cuda.detect_words(*args)
         points = compact.words_to_points(words)
 
-        def pipeline():
+        def serve_batches():
             pipe = serving.DetectorPipeline(cfg, depth=2)
             for b in batches:
                 pipe.submit(b)
@@ -421,7 +562,7 @@ def main() -> int:
             "decode_ms": time_host(lambda: compact.words_to_points(words)),
             "split_ms": time_host(lambda: compact.split_frames(points, BATCH)),
             # DetectorPipeline(depth=2), per batch of a 4-batch stream
-            "pipeline_ms": time_host(pipeline, repeats=5) / len(batches),
+            "pipeline_ms": time_host(serve_batches, repeats=5) / len(batches),
         }
         timing[mode.value] = r
         log(f"timing {mode.value} ({BATCH}, 1080, 1920), ms per frame: "
@@ -471,6 +612,55 @@ def main() -> int:
     log(json.dumps({"frontend_ms_per_batch": ft, "describe_crossover_ms_per_batch": crossover,
                     "dense_k_min": brief._DENSE_K_MIN}))
 
+    # -- 4c. row-shard kernels and the multi-device paths, ms per frame ----
+    rows8 = spatial.shard_rows(1080, 8)
+    [(_, ext8, row0_8)] = spatial.shard_slabs(torch.from_numpy(g1080), [dev] * 8, rows8)
+    one = torch.from_numpy(g1080)[None].to(dev)
+    tiles_kw = dict(height=1080, width=1920, halo=spatial.HALO)
+    tt = {}
+    for mode in modes:
+        a = (16, 9, mode)
+        tt[mode.value] = {
+            "words_tiles_ms": time_cuda(lambda: fast_cuda.detect_words_tiles(ext8, row0_8, *a, **tiles_kw)),
+            "dense_tiles_ms": time_cuda(lambda: fast_cuda.detect_dense_tiles(ext8, row0_8, *a, **tiles_kw)),
+            "plain_dense_tiles_ms": time_cuda(
+                lambda: fast.detect_dense_tiles(ext8, row0_8.tolist(), *a, **tiles_kw),
+                repeats=5, inner=2),
+            "plain_words_tiles_ms": time_cuda(
+                lambda: compact.pack_mask_words(
+                    fast.detect_dense_tiles(ext8, row0_8.tolist(), *a, **tiles_kw)[0]),
+                repeats=5, inner=2),
+            "words_whole_ms": time_cuda(lambda: fast_cuda.detect_words(one, *a)),
+            "dense_whole_ms": time_cuda(lambda: fast_cuda.detect_dense(one, *a)),
+            "slabs_ms": time_cuda(lambda: spatial.shard_slabs(torch.from_numpy(g1080), [dev] * 8, rows8)),
+        }
+        log(f"timing row-shard kernels, one 1080p frame in 8 shards of {rows8} rows, {mode.value}, "
+            f"ms: " + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in tt[mode.value].items()))
+    sp = {}
+    for size, frame in (("1080p", g1080), ("4K", g4k), ("8192w", g8192)):
+        for mode in modes:
+            cfg = Config(16, 9, mode)
+            sp[f"{size}_{mode.value}"] = {
+                "sharded8_ms": time_host(lambda: spatial.detect_arrays_rows_sharded(
+                    frame, 16, 9, mode, mesh=mesh8)),
+                "detect_arrays_ms": time_host(lambda: api.detect_arrays(frame, cfg)),
+            }
+        log(f"timing detect_arrays_rows_sharded (8 shards, one card) vs detect_arrays, {size} "
+            f"{frame.shape}, ms per frame: "
+            + "; ".join(f"{m.value} {sp[f'{size}_{m.value}']['sharded8_ms']:.4f} vs "
+                        f"{sp[f'{size}_{m.value}']['detect_arrays_ms']:.4f}" for m in modes))
+    pt = {}
+    for oriented in (False, True):
+        tag = "steered" if oriented else "plain"
+        pt[f"pipelined_{tag}_ms"] = time_host(lambda: pipeline.frontend_pipelined(
+            imgs, 16, 9, 1000, mesh=pipe_mesh, oriented=oriented), repeats=5) / BATCH
+        pt[f"sequential_{tag}_ms"] = time_host(lambda: sequential_frontend(oriented),
+                                               repeats=5) / BATCH
+    log(f"timing front-end stream ({BATCH}, 1080, 1920), k=1000, device frames in, ms per frame: "
+        + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in pt.items()))
+    log(json.dumps({"tiles_ms_per_frame": tt, "spatial_ms_per_frame": sp,
+                    "pipeline_ms_per_frame": pt}))
+
     rows = []
     for kname, key, line in (("fdf_fast_words", "words", 949), ("fdf_fast_dense", "dense", 621)):
         rows.append({
@@ -507,6 +697,22 @@ def main() -> int:
         })
     rows[3]["also_replaces"] = "feature_detector_fast_tpu/ops/patch_pallas.py:123"
     rows[4]["launches_counted_in"] = "the kernel phase (no main path runs extract_patches)"
+    for kname, key, line in (("fdf_fast_dense_tiles", "dense_tiles", 647),
+                             ("fdf_fast_words_tiles", "words_tiles", 1029)):
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "feature_detector_fast_tpu_torch/csrc/fast.cu",
+            "replaces": f"feature_detector_fast_tpu/ops/fast_pallas.py:{line}",
+            "launches": mc_launches[kname],
+            "max_abs_err": max_err[key],
+            "ms": tt["max_threshold"][f"{key}_ms"],
+            "plain_ms": tt["max_threshold"][f"plain_{key}_ms"],
+            "timed_at": f"one call over a 1080p frame in 8 shards of {rows8} rows, halo "
+                        f"{spatial.HALO}, t=16, n=9, max_threshold",
+            "ms_by_mode": {m: tt[m][f"{key}_ms"] for m in tt},
+            "plain_ms_by_mode": {m: tt[m][f"plain_{key}_ms"] for m in tt},
+        })
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,10 @@ It imports neither JAX nor that package.
   * `models.pyramid` — multi-scale detect + describe
   * `api` — ``detect`` and the batched / device-resident / strongest-K paths
   * `serving` — pipelined batches on a CUDA side stream
+  * `parallel` — the multi-device front-end: meshes of explicit devices,
+    row-sharded detection of one frame (``csrc/fast.cu``'s row-shard entry
+    points), data-parallel batches and the 3-stage detect → describe →
+    match pipeline, all driven by one process
 
 Public API parity with the reference (`src/lib.rs`):
 

@@ -419,13 +419,20 @@ def detect_and_describe_batch(
     imgs = _as_images(images, 3, device)
     mask, score = fast_cuda.detect_dense(imgs, threshold, count, NonmaxMode.SUM_ABSOLUTE)
     kps = select_topk(mask, score, k)
-    if imgs.device.type == "cpu":
-        desc, dvalid = (describe_oriented if oriented else describe)(imgs, kps)
-    elif oriented or k <= _DENSE_K_MIN:
-        desc, dvalid = describe_patched(imgs, kps, oriented)
-    else:
-        desc, dvalid = describe_dense(imgs, kps)
-    return kps, desc, dvalid
+    return (kps, *describe_best(imgs, kps, oriented))
+
+
+def describe_best(images: torch.Tensor, kps: Keypoints,
+                  oriented: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BRIEF-256 by the route for the frames' device: on the CPU the sparse
+    gathers (:func:`describe`, :func:`describe_oriented`); on CUDA the
+    patch kernel for steered calls and K <= _DENSE_K_MIN, the dense kernel
+    above.  All routes agree at every valid slot."""
+    if images.device.type == "cpu":
+        return (describe_oriented if oriented else describe)(images, kps)
+    if oriented or kps.xy.shape[-2] <= _DENSE_K_MIN:
+        return describe_patched(images, kps, oriented)
+    return describe_dense(images, kps)
 
 
 def detect_and_describe(

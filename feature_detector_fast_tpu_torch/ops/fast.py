@@ -19,11 +19,15 @@ Semantics are bit-exact with the reference / OpenCV:
   * nonmax: a keypoint survives iff its score strictly exceeds the scores of
     all 8 neighbors (non-keypoints score 0), and rows y==3 and y==H-4 are
     dropped after competing (opencv_compat.rs:236-260).
+
+The row rules can be judged in the global rows of a taller frame
+(``row_offset``, ``height``): :func:`detect_dense_tiles`, the plain version
+of the row-shard kernels, runs each shard's slab that way.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,13 +55,27 @@ def circle_taps(image: torch.Tensor) -> List[torch.Tensor]:
     ]
 
 
-def interior_mask(shape: Tuple[int, int], device=None) -> torch.Tensor:
-    """Boolean (H, W) mask of the detectable region x in [3, W-4], y in [3, H-4]."""
+def _global_rows(h: int, device, row_offset: int, height: Optional[int]):
+    """Global row of each of the buffer's ``h`` rows, and the frame height."""
+    height = h if height is None else int(height)
+    return torch.arange(h, device=device) + int(row_offset), height
+
+
+def interior_mask(shape: Tuple[int, int], device=None, *, row_offset: int = 0,
+                  height: Optional[int] = None) -> torch.Tensor:
+    """Boolean (H, W) mask of the detectable region x in [3, W-4], y in [3, H-4].
+
+    Row y of the buffer is global row ``row_offset + y`` of a frame
+    ``height`` rows tall (by default the buffer is the frame); a row is
+    detectable only if its circle lies inside the buffer (y in [3, H-4])
+    and its global row lies in [3, height-4].  A row shard with its
+    neighbours' halo rows thus gives the rows of the whole frame."""
     h, w = shape
     r = RADIUS
     rows = torch.arange(h, device=device)
     cols = torch.arange(w, device=device)
-    row = (rows >= r) & (rows < h - r)
+    g, height = _global_rows(h, device, row_offset, height)
+    row = (rows >= r) & (rows < h - r) & (g >= r) & (g < height - r)
     col = (cols >= r) & (cols < w - r)
     return row[:, None] & col[None, :]
 
@@ -73,13 +91,16 @@ def _bright_dark(
     return bright, dark
 
 
-def detect_mask(image: torch.Tensor, threshold: int, count: int) -> torch.Tensor:
-    """Dense keypoint candidacy mask (no nonmax), bool."""
+def detect_mask(image: torch.Tensor, threshold: int, count: int, *,
+                row_offset: int = 0, height: Optional[int] = None) -> torch.Tensor:
+    """Dense keypoint candidacy mask (no nonmax), bool; ``row_offset`` and
+    ``height`` place the buffer in its frame (:func:`interior_mask`)."""
     taps = circle_taps(image)
     bright, dark = _bright_dark(image, taps, threshold)
     is_b = windows.ring_any_window_all(bright, int(count), torch.logical_and, torch.logical_or)
     is_d = windows.ring_any_window_all(dark, int(count), torch.logical_and, torch.logical_or)
-    return (is_b | is_d) & interior_mask(image.shape[-2:], image.device)
+    return (is_b | is_d) & interior_mask(image.shape[-2:], image.device,
+                                         row_offset=row_offset, height=height)
 
 
 def score_max_threshold(image: torch.Tensor, count: int) -> torch.Tensor:
@@ -116,16 +137,17 @@ def score_sum_abs(image: torch.Tensor, threshold: int) -> torch.Tensor:
     return torch.maximum(sum_light, sum_dark)
 
 
-def nonmax_mask(kp: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+def nonmax_mask(kp: torch.Tensor, score: torch.Tensor, *, row_offset: int = 0,
+                height: Optional[int] = None) -> torch.Tensor:
     """3x3 strict-maximum suppression on a keypoint-masked score map.
 
     A keypoint survives iff score > every 8-neighbor score, where
-    non-keypoints contribute 0.  Rows y==3 and y==H-4 take part as
-    neighbors but are themselves dropped.  The roll's wraparound only
-    carries rows/cols of the zero-score 3-pixel border, so it cannot
-    affect the result.
+    non-keypoints contribute 0.  The global rows 3 and height-4 (the
+    buffer's rows 3 and H-4 by default; see :func:`interior_mask`) take
+    part as neighbors but are themselves dropped.  The roll's wraparound
+    only carries rows/cols of the buffer's zero-score 3-pixel border, so
+    it cannot affect the result.
     """
-    h = kp.shape[-2]
     s = torch.where(kp, score.to(_IDT), 0)
     neigh = torch.full_like(s, -1)
     for dy in (-1, 0, 1):
@@ -134,22 +156,27 @@ def nonmax_mask(kp: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
                 continue
             neigh = torch.maximum(neigh, torch.roll(s, (-dy, -dx), dims=(-2, -1)))
     keep = kp & (s > neigh)
-    rows = torch.arange(h, device=kp.device)
-    keep_row = (rows != RADIUS) & (rows != h - RADIUS - 1)
+    g, height = _global_rows(kp.shape[-2], kp.device, row_offset, height)
+    keep_row = (g != RADIUS) & (g != height - RADIUS - 1)
     return keep & keep_row[:, None]
 
 
 def detect_dense(
-    image: torch.Tensor, threshold: int, count: int, nonmax: NonmaxMode
+    image: torch.Tensor, threshold: int, count: int, nonmax: NonmaxMode, *,
+    row_offset: int = 0, height: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full dense pipeline: (final keypoint mask bool, score map u16).
 
     With nonmax OFF the score map is all zeros and the mask is the arc
     mask; otherwise the score is the selected dense score masked by
-    candidacy (before nonmax), and the mask is post-suppression.
+    candidacy (before nonmax), and the mask is post-suppression.  Row y of
+    the buffer is global row ``row_offset + y`` of a frame ``height`` rows
+    tall, and every border rule is judged in global rows
+    (:func:`interior_mask`); the defaults make the buffer the frame.
     """
     nonmax = NonmaxMode(nonmax)
-    kp = detect_mask(image, threshold, count)
+    where = dict(row_offset=row_offset, height=height)
+    kp = detect_mask(image, threshold, count, **where)
     if nonmax is NonmaxMode.OFF:
         return kp, torch.zeros(image.shape, dtype=torch.uint16, device=image.device)
     if nonmax is NonmaxMode.MAX_THRESHOLD:
@@ -157,4 +184,27 @@ def detect_dense(
     else:
         score = score_sum_abs(image, threshold)
     score = torch.where(kp, score, 0)
-    return nonmax_mask(kp, score), score.to(torch.uint16)
+    return nonmax_mask(kp, score, **where), score.to(torch.uint16)
+
+
+def detect_dense_tiles(
+    ext: torch.Tensor, row0: Sequence[int], threshold: int, count: int,
+    nonmax: NonmaxMode, *, height: int, width: int, halo: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the row-shard kernels (``csrc/fast.cu``
+    ``fdf_fast_dense_tiles`` / ``fdf_fast_words_tiles``).
+
+    ``ext`` is an (S, rows + 2*halo, >= width) u8 stack of shard slabs:
+    shard s's own rows with ``halo`` rows of its neighbours above and
+    below; ``row0[s]`` is the global row of its first own row, in a frame
+    ``height`` x ``width``.  Returns (mask bool, score u16), (S, rows,
+    width): each shard's own rows, equal to those rows of
+    :func:`detect_dense` of the whole frame when halo >= 4."""
+    rows = ext.shape[-2] - 2 * halo
+    masks, scores = [], []
+    for slab, r0 in zip(ext, row0):
+        mask, score = detect_dense(slab[:, :width], threshold, count, nonmax,
+                                   row_offset=int(r0) - halo, height=height)
+        masks.append(mask[halo:halo + rows])
+        scores.append(score[halo:halo + rows])
+    return torch.stack(masks), torch.stack(scores)

@@ -3,14 +3,19 @@
 Replaces the TPU kernels of ``feature_detector_fast_tpu/ops/fast_pallas.py``:
 ``_kernel_words`` (:949, entry ``detect_words_padded``) becomes
 :func:`detect_words`, and ``_kernel`` (:621, entry ``detect_dense_padded``)
-becomes :func:`detect_dense`.  One thread per pixel; a warp's ballot over 32
+becomes :func:`detect_dense`, and their row-shard forms ``_kernel_words_tiles``
+(:1029, entry ``detect_words_tiles``) and ``_kernel_tiles`` (:647, entry
+``detect_dense_tiles``) become :func:`detect_words_tiles` and
+:func:`detect_dense_tiles`.  One thread per pixel; a warp's ballot over 32
 aligned columns is the packed word, so the words path never writes a dense
 mask.  The kernel is bound by integer instruction throughput (32 compares
 per pixel for the arc test, up to 480 min/max per corner for the
 MaxThreshold score), not by its 1 byte read per pixel; see the note at the
 top of the source.
 
-Both entry points take a (B, H, W) u8 tensor.  On a CUDA tensor they check
+The whole-frame entry points take a (B, H, W) u8 tensor, the tiles entry
+points an (S, rows + 2*halo, W) u8 stack of row-shard slabs and an (S,)
+int32 tensor of each shard's global first row.  On a CUDA tensor they check
 it (device, dtype, rank, contiguity), allocate the outputs with
 ``torch.empty``, launch on the current stream without synchronising, and
 raise if the launch reports an error.  On a CPU tensor, and only there,
@@ -30,7 +35,7 @@ from ..config import Config, NonmaxMode
 from . import compact, fast
 
 #: Kernel launches per entry point; incremented only where a kernel launches.
-LAUNCHES = {"words": 0, "dense": 0}
+LAUNCHES = {"words": 0, "dense": 0, "words_tiles": 0, "dense_tiles": 0}
 
 _MODE_CODE = {NonmaxMode.OFF: 0, NonmaxMode.MAX_THRESHOLD: 1, NonmaxMode.SUM_ABSOLUTE: 2}
 
@@ -46,6 +51,12 @@ def load_library() -> ctypes.CDLL:
     lib.fdf_fast_words.restype = ctypes.c_int
     lib.fdf_fast_dense.argtypes = [ctypes.c_void_p] * 3 + ints + [ctypes.c_void_p]
     lib.fdf_fast_dense.restype = ctypes.c_int
+    # S, rows, halo, W, pitch, height, t, count, mode, device
+    tiles = [ctypes.c_int] * 10
+    lib.fdf_fast_words_tiles.argtypes = [ctypes.c_void_p] * 3 + tiles + [ctypes.c_void_p]
+    lib.fdf_fast_words_tiles.restype = ctypes.c_int
+    lib.fdf_fast_dense_tiles.argtypes = [ctypes.c_void_p] * 4 + tiles + [ctypes.c_void_p]
+    lib.fdf_fast_dense_tiles.restype = ctypes.c_int
     lib.fdf_error_string.argtypes = [ctypes.c_int]
     lib.fdf_error_string.restype = ctypes.c_char_p
     return lib
@@ -66,16 +77,17 @@ def _check(images: torch.Tensor, threshold: int, count: int, nonmax) -> Config:
     return Config(threshold, count, NonmaxMode(nonmax))
 
 
-def _launch(fn, images: torch.Tensor, outs, cfg: Config) -> None:
-    b, h, w = images.shape
-    err = fn(
-        images.data_ptr(), *(o.data_ptr() for o in outs),
-        b, h, w, 0, h, cfg.threshold, cfg.count, _MODE_CODE[cfg.nonmax],
-        images.device.index, torch.cuda.current_stream(images.device).cuda_stream,
-    )
+def _launch(fn, device: torch.device, *args) -> None:
+    """``fn(*args, device, stream)`` on the device's current stream; raise
+    if the launch reports an error."""
+    err = fn(*args, device.index, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = load_library().fdf_error_string(err).decode()
         raise RuntimeError(f"FAST kernel launch failed: {msg} (cudaError {err})")
+
+
+def _cfg_args(cfg: Config) -> Tuple[int, int, int]:
+    return cfg.threshold, cfg.count, _MODE_CODE[cfg.nonmax]
 
 
 def detect_words(images: torch.Tensor, threshold: int, count: int,
@@ -90,7 +102,8 @@ def detect_words(images: torch.Tensor, threshold: int, count: int,
     words = torch.empty((b, h, -(-w // compact.WORD_BITS)), dtype=torch.int32,
                         device=images.device)
     if words.numel():
-        _launch(load_library().fdf_fast_words, images, (words,), cfg)
+        _launch(load_library().fdf_fast_words, images.device, images.data_ptr(),
+                words.data_ptr(), b, h, w, 0, h, *_cfg_args(cfg))
         LAUNCHES["words"] += 1
     return words
 
@@ -106,6 +119,79 @@ def detect_dense(images: torch.Tensor, threshold: int, count: int,
     mask = torch.empty(images.shape, dtype=torch.uint16, device=images.device)
     score = torch.empty(images.shape, dtype=torch.uint16, device=images.device)
     if images.numel():
-        _launch(load_library().fdf_fast_dense, images, (mask, score), cfg)
+        b, h, w = images.shape
+        _launch(load_library().fdf_fast_dense, images.device, images.data_ptr(),
+                mask.data_ptr(), score.data_ptr(), b, h, w, 0, h, *_cfg_args(cfg))
         LAUNCHES["dense"] += 1
+    return mask, score
+
+
+#: Fewest halo rows a shard slab may carry: the circle radius (3) plus the
+#: nonmax ring (1).
+MIN_HALO = 4
+
+
+def _check_tiles(ext: torch.Tensor, row0: torch.Tensor, threshold: int, count: int,
+                 nonmax, height: int, width: int, halo: int) -> Tuple[Config, int]:
+    """Check a tiles call; returns its Config and the shards' own rows."""
+    cfg = _check(ext, threshold, count, nonmax)
+    if not isinstance(row0, torch.Tensor) or row0.dtype != torch.int32:
+        raise TypeError("row0 must be an int32 tensor of each shard's global first row")
+    if tuple(row0.shape) != (ext.shape[0],) or row0.device != ext.device:
+        raise ValueError(f"row0 must have shape ({ext.shape[0]},) on {ext.device}, "
+                         f"got {tuple(row0.shape)} on {row0.device}")
+    if ext.device.type == "cuda" and not row0.is_contiguous():
+        raise ValueError("the kernel takes a contiguous row0")
+    if int(halo) < MIN_HALO:
+        raise ValueError(f"halo must be at least {MIN_HALO} rows (circle radius + nonmax "
+                         f"ring), got {halo}")
+    rows = ext.shape[1] - 2 * int(halo)
+    if ext.shape[0] < 1 or rows < 1:
+        raise ValueError(f"expected an (S, rows + 2*{halo}, W) slab stack with S, rows >= 1, "
+                         f"got shape {tuple(ext.shape)}")
+    if not 1 <= int(width) <= ext.shape[2] or int(height) < 1:
+        raise ValueError(f"frame {height} x {width} does not fit slabs {tuple(ext.shape)}")
+    return cfg, rows
+
+
+def detect_words_tiles(ext: torch.Tensor, row0: torch.Tensor, threshold: int, count: int,
+                       nonmax: NonmaxMode, *, height: int, width: int,
+                       halo: int) -> torch.Tensor:
+    """Row-shard words: ``ext`` (S, rows + 2*halo, >= width) u8 holds each
+    shard's own rows with ``halo`` rows of its neighbours above and below,
+    ``row0`` (S,) int32 the global row of each shard's first own row, in a
+    frame ``height`` x ``width``.  Returns (S, rows, ceil(width/32)) int32
+    words of the shards' own rows, in :func:`detect_words`' layout."""
+    cfg, rows = _check_tiles(ext, row0, threshold, count, nonmax, height, width, halo)
+    if ext.device.type == "cpu":
+        mask, _ = fast.detect_dense_tiles(ext, row0.tolist(), cfg.threshold, cfg.count,
+                                          cfg.nonmax, height=height, width=width, halo=halo)
+        return compact.pack_mask_words(mask)
+    s = ext.shape[0]
+    words = torch.empty((s, rows, -(-int(width) // compact.WORD_BITS)), dtype=torch.int32,
+                        device=ext.device)
+    _launch(load_library().fdf_fast_words_tiles, ext.device, ext.data_ptr(),
+            row0.data_ptr(), words.data_ptr(), s, rows, int(halo), int(width),
+            ext.shape[2], int(height), *_cfg_args(cfg))
+    LAUNCHES["words_tiles"] += 1
+    return words
+
+
+def detect_dense_tiles(ext: torch.Tensor, row0: torch.Tensor, threshold: int, count: int,
+                       nonmax: NonmaxMode, *, height: int, width: int,
+                       halo: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-shard dense form of :func:`detect_words_tiles`' arguments:
+    (mask, score), both (S, rows, width) u16, of the shards' own rows."""
+    cfg, rows = _check_tiles(ext, row0, threshold, count, nonmax, height, width, halo)
+    if ext.device.type == "cpu":
+        mask, score = fast.detect_dense_tiles(ext, row0.tolist(), cfg.threshold, cfg.count,
+                                              cfg.nonmax, height=height, width=width, halo=halo)
+        return mask.to(torch.uint16), score
+    s = ext.shape[0]
+    mask = torch.empty((s, rows, int(width)), dtype=torch.uint16, device=ext.device)
+    score = torch.empty_like(mask)
+    _launch(load_library().fdf_fast_dense_tiles, ext.device, ext.data_ptr(),
+            row0.data_ptr(), mask.data_ptr(), score.data_ptr(), s, rows,
+            int(halo), int(width), ext.shape[2], int(height), *_cfg_args(cfg))
+    LAUNCHES["dense_tiles"] += 1
     return mask, score

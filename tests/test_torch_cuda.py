@@ -45,7 +45,8 @@ def test_kernels_match_plain(device, mode):
             words = fast_cuda.detect_words(imgs, t, count, mode)
             k_mask, k_score = fast_cuda.detect_dense(imgs, t, count, mode)
             torch.cuda.synchronize()
-            assert fast_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+            assert fast_cuda.LAUNCHES == {**before, "words": before["words"] + 1,
+                                          "dense": before["dense"] + 1}
             assert torch.equal(words, compact.pack_mask_words(mask))
             assert torch.equal(k_mask.to(torch.int32), mask.to(torch.int32))
             assert torch.equal(k_score.to(torch.int32), score.to(torch.int32))
@@ -132,3 +133,48 @@ def test_new_kernels_reject_non_contiguous(device):
         patch_cuda.extract_windows_fused(imgs, xy)
     with pytest.raises(ValueError, match="contiguous"):
         patch_cuda.extract_patches(imgs.to(torch.int32), xy)
+
+
+@pytest.mark.parametrize("mode", list(NonmaxMode), ids=lambda m: m.value)
+def test_tiles_kernels_match_plain(device, mode):
+    """Both row-shard entry points == the plain version on the card, counts
+    9..=16, at 4-row halos over 3 shards of a 61 x 157 frame (the last
+    shard padded) and at a 64-row halo; one launch each per call."""
+    from feature_detector_fast_tpu_torch.parallel import spatial
+
+    img = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (61, 157), np.uint8))
+    rows = spatial.shard_rows(61, 3)
+    [(_, ext4, row0)] = spatial.shard_slabs(img, [device] * 3, rows)
+    wide = torch.nn.functional.pad(img, (0, 0, 64, 64 + 3 * rows - 61))
+    ext64 = torch.stack([wide[s * rows:s * rows + rows + 128] for s in range(3)]).to(device)
+    for ext, halo in ((ext4, 4), (ext64, 64)):
+        for count in range(9, 17):
+            kw = dict(height=61, width=157, halo=halo)
+            p_mask, p_score = fast.detect_dense_tiles(ext, row0.tolist(), 16, count, mode, **kw)
+            before = dict(fast_cuda.LAUNCHES)
+            words = fast_cuda.detect_words_tiles(ext, row0, 16, count, mode, **kw)
+            k_mask, k_score = fast_cuda.detect_dense_tiles(ext, row0, 16, count, mode, **kw)
+            torch.cuda.synchronize()
+            assert fast_cuda.LAUNCHES["words_tiles"] == before["words_tiles"] + 1
+            assert fast_cuda.LAUNCHES["dense_tiles"] == before["dense_tiles"] + 1
+            assert torch.equal(words, compact.pack_mask_words(p_mask))
+            assert torch.equal(k_mask.to(torch.int32), p_mask.to(torch.int32))
+            assert torch.equal(k_score.to(torch.int32), p_score.to(torch.int32))
+
+
+def test_spatial_list_matches_detect_arrays(device):
+    """detect_arrays_rows_sharded at 1, 3 and 8 shards on one card ==
+    detect_arrays of the whole frame, through the tiles kernels."""
+    from feature_detector_fast_tpu_torch.parallel import mesh as meshlib, spatial
+
+    ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
+    for shards in (1, 3, 8):
+        mesh = meshlib.make_mesh(devices=[device] * shards)
+        for mode in NonmaxMode:
+            before = fast_cuda.LAUNCHES["words_tiles"]
+            xy = spatial.detect_arrays_rows_sharded(ref, 16, 9, mode, mesh=mesh)
+            assert fast_cuda.LAUNCHES["words_tiles"] == before + 1  # one device, one launch
+            np.testing.assert_array_equal(xy, port.detect_arrays(ref, Config(16, 9, mode)))
+            mask, score = spatial.detect_rows_sharded(ref, 16, 9, mode, mesh=mesh)
+            k_mask, k_score = fast_cuda.detect_dense(torch.from_numpy(ref)[None].to(device), 16, 9, mode)
+            assert torch.equal(mask, k_mask[0].bool()) and torch.equal(score, k_score[0])
