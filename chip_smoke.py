@@ -20,12 +20,17 @@ launch counters zeroed just before it and read just after:
   card) -- row-sharded ``detect_arrays_rows_sharded`` / ``detect_rows_sharded``
   at 1080p, 4K and 8192 px wide, ``detect_batch_sharded`` over 4 shards and
   the 3-stage ``frontend_pipelined`` -- against the golden pins and the
-  single-device paths.
+  single-device paths;
+* the tools -- each ``feature_detector_fast_tpu_torch.tools`` module's
+  ``run()`` at 2 rounds: acceptance, the resolution, sweep, serving,
+  front-end and scaling benchmarks, and the OFF-floor experiments on the
+  kernels of ``csrc/exp_off.cu`` -- against the golden counts and their own
+  bit-exact checks.
 
 It then times kernels, plain versions, batch detection, the front-end,
-the patched-vs-dense describe crossover at (16, 1080, 1920), and the
+the patched-vs-dense describe crossover at (16, 1080, 1920), the
 row-shard kernels and multi-device paths against their single-device
-counterparts.
+counterparts, and the experiment kernels.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -75,7 +80,7 @@ FEATURE_PINS = {
 MATCH_PIN = {False: 926, True: 926}
 
 BATCH = 16
-SOURCES = ("fast.cu", "brief.cu", "patch.cu")
+SOURCES = ("fast.cu", "brief.cu", "patch.cu", "exp_off.cu")
 
 
 def check(cond: bool, what: str) -> None:
@@ -85,38 +90,6 @@ def check(cond: bool, what: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def time_cuda(fn, *, repeats: int = 7, inner: int = 5) -> float:
-    """Median over ``repeats`` of the mean ms of ``inner`` calls, by CUDA
-    events, after a warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
-
-
-def time_host(fn, *, repeats: int = 7) -> float:
-    """Median host-clock ms of ``fn`` up to a device synchronisation, after a
-    warm-up call."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
 
 
 def near_half_bins(image: np.ndarray, xy: np.ndarray) -> np.ndarray:
@@ -168,9 +141,13 @@ def main() -> int:
     from feature_detector_fast_tpu_torch.models import brief, match, pyramid
     from feature_detector_fast_tpu_torch.models.brief import Keypoints
     from feature_detector_fast_tpu_torch.ops import (
-        brief_cuda, compact, fast, fast_cuda, patch_cuda)
+        brief_cuda, compact, exp_off, exp_off_cuda, fast, fast_cuda, patch_cuda)
     from feature_detector_fast_tpu_torch.parallel import (
         frontend as dp, mesh as meshlib, pipeline, spatial)
+    from feature_detector_fast_tpu_torch.tools import (
+        acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, frontend_bench,
+        resolution_bench, scaling_bench, serving_bench, sweep)
+    from feature_detector_fast_tpu_torch.tools._common import loop_ms, time_cuda, time_host
     from feature_detector_fast_tpu_torch.utils import cuda_build
     from feature_detector_fast_tpu_torch.utils.hashing import hash_image, hash_keypoints
     from feature_detector_fast_tpu_torch.utils.image import load_luma8
@@ -187,7 +164,7 @@ def main() -> int:
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.build_all(SOURCES)
-    for lib in (fast_cuda, brief_cuda, patch_cuda):
+    for lib in (fast_cuda, brief_cuda, patch_cuda, exp_off_cuda):
         lib.load_library()
     log(f"build: csrc/{{{','.join(SOURCES)}}} in {time.perf_counter() - t0:.2f} s, in parallel "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -310,10 +287,52 @@ def main() -> int:
     log("tiles kernels vs plain: golden_1080x1920 in 8 shards with 64-row halos: 3 modes, "
         "count 9, bit-exact")
 
+    # -- 2d. the experiment kernels against their plain versions ----------
+    max_err.update({key: 0 for key in exp_off_cuda.LAUNCHES})
+    exp_inputs = {f"batch_{BATCH}x1080x1920": batch,
+                  "rand_2x1037x1931": rng.integers(0, 256, (2, 1037, 1931), np.uint8)}
+    for name, arr in exp_inputs.items():
+        imgs = torch.from_numpy(arr).to(dev)
+        _, h, w = arr.shape
+        for stage, args in ((exp_off.LOAD, ()), (exp_off.TRIPLE, (128,)), (exp_off.TRIPLE, (8,)),
+                            (exp_off.PREFILTER, (16, 9)), (exp_off.PREFILTER, (16, 12))):
+            e = err(exp_off_cuda.FLOORS[stage](imgs, *args), exp_off.FLOORS[stage](imgs, *args))
+            max_err[f"floor_{stage}"] = max(max_err[f"floor_{stage}"], e)
+            check(e == 0, f"floor {stage} {args} != plain on {name}: err {e}")
+        plane = exp_off.prepack(imgs)
+        for count in range(9, 17):
+            for t in (16, 32):
+                got = exp_off_cuda.words_prepacked(plane, t, count, height=h, width=w)
+                e = max(err(got, fast_cuda.detect_words(imgs, t, count, NonmaxMode.OFF)),
+                        err(got, exp_off.words_prepacked(plane, t, count, height=h, width=w)))
+                max_err["words_prepacked"] = max(max_err["words_prepacked"], e)
+                check(e == 0, f"prepacked words != fdf_fast_words OFF / plain on {name}, "
+                              f"count {count}, t {t}: err {e}")
+        log(f"experiment kernels vs plain: {name} {arr.shape}: floors LOAD, TRIPLE (span 128 "
+            f"and 8), PREFILTER (need 2 and 3) bit-exact; prepacked words == fdf_fast_words OFF "
+            f"== plain at counts 9..16 x t (16, 32)")
+    # The byte-SWAR tool's seeded planes in [0, 2^30), and planes over the
+    # whole int32 range, where the adds wrap.
+    prng = np.random.default_rng(0)
+
+    def pred_planes(rows_: int, low: int, high: int):
+        return [torch.from_numpy(prng.integers(low, high, (64 * rows_, 128), np.int64)
+                                 .astype(np.int32)).to(dev) for _ in range(3)]
+
+    for low, high in ((0, 2**30), (-2**31, 2**31)):
+        for key, rows_ in (("pred16", 256), ("pred8", 128)):
+            xs = pred_planes(rows_, low, high)
+            e = err(getattr(exp_off_cuda, f"swar_{key}")(*xs), getattr(exp_off, f"swar_{key}")(*xs))
+            max_err[key] = max(max_err[key], e)
+            check(e == 0, f"{key} != plain on planes in [{low}, {high}): err {e}")
+    log("experiment kernels vs plain: pred16 (64x256, 128) and pred8 (64x128, 128) on the "
+        "tool's seeded planes and on full-range int32 planes, bit-exact")
+
     # extract_patches runs on no main path (in the JAX package only the
     # tests call it); its launches are the kernel phase's.
     patches_launches = patch_cuda.LAUNCHES["extract_patches"]
-    counters = (fast_cuda.LAUNCHES, brief_cuda.LAUNCHES, patch_cuda.LAUNCHES)
+    counters = (fast_cuda.LAUNCHES, brief_cuda.LAUNCHES, patch_cuda.LAUNCHES,
+                exp_off_cuda.LAUNCHES)
 
     def zero_counts() -> None:
         for counts in counters:
@@ -532,6 +551,58 @@ def main() -> int:
             f"{BATCH} frames == sequential detect_and_describe + match; matches per frame "
             f"{(stream.match_idx >= 0).sum(-1).tolist()}; frames 0/1 match {n01} (pin)")
 
+    # -- 3d. the tools, counted --------------------------------------------
+    # Each tool's run() on the card at 2 rounds; their checks raise.
+    zero_counts()
+    tool_recs = {}
+    for name, tool, kw in (("acceptance", acceptance, {}),
+                           ("resolution_bench", resolution_bench, dict(rounds=2)),
+                           ("sweep", sweep, dict(rounds=2)),
+                           ("serving_bench", serving_bench, dict(rounds=2)),
+                           ("frontend_bench", frontend_bench, dict(rounds=2)),
+                           ("scaling_bench", scaling_bench, dict(rounds=2)),
+                           ("exp_off_floor", exp_off_floor, dict(rounds=2)),
+                           ("exp_off_prepack", exp_off_prepack, dict(rounds=2)),
+                           ("exp_off_byteswar", exp_off_byteswar, dict(rounds=2))):
+        t0 = time.perf_counter()
+        tool_recs[name] = list(tool.run(device="cuda", **kw))
+        check(all(r["device"] == smi for r in tool_recs[name]), f"{name}: records name another card")
+        log(f"tool {name}: {len(tool_recs[name])} records in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    tool_launches = {f"fdf_off_floor_{stage}": exp_off_cuda.LAUNCHES[f"floor_{stage}"]
+                     for stage in exp_off.FLOORS}
+    tool_launches.update(fdf_fast_words_prepacked=exp_off_cuda.LAUNCHES["words_prepacked"],
+                         fdf_swar_pred16=exp_off_cuda.LAUNCHES["pred16"],
+                         fdf_swar_pred8=exp_off_cuda.LAUNCHES["pred8"])
+    log(f"tools main path launches: {tool_launches}")
+    for kname, n in tool_launches.items():
+        check(n > 0, f"the tools never launched {kname}")
+
+    summary = tool_recs["acceptance"][-1]
+    check(summary["ok"] and summary["configs"] == 24 and not summary["failures"],
+          f"acceptance: {summary}")
+    res = {r["resolution"]: r for r in tool_recs["resolution_bench"]}
+    check(res["1080p"]["keypoints"] == 24130, f"resolution_bench 1080p: {res['1080p']}")
+    sw = {(r["threshold"], r["count"]): r for r in tool_recs["sweep"]}
+    check(len(sw) == 16 and sw[(16, 9)]["keypoints"] == 6469, f"sweep t=16 n=9: {sw.get((16, 9))}")
+    serving_recs = [r for r in tool_recs["serving_bench"] if r["stage"] == "serving"]
+    check(len(serving_recs) == 3 and all(r["bit_exact"] for r in serving_recs),
+          "serving_bench: not bit-exact at every depth")
+    check(len(tool_recs["frontend_bench"]) == 12, "frontend_bench: expected 3 sizes x 4 stages")
+    check([r["devices"] for r in tool_recs["scaling_bench"]] == [1, 2, 4],
+          f"scaling_bench devices {[r['devices'] for r in tool_recs['scaling_bench']]}")
+    check(tool_recs["exp_off_prepack"][0]["bit_exact"], "exp_off_prepack: not bit-exact")
+    log(f"tools: acceptance ok, 24 configs; resolution_bench 1080p OFF "
+        f"{res['1080p']['keypoints']} keypoints, ms per frame "
+        + ", ".join(f"{k} {r['ms_per_frame']:.4f}" for k, r in res.items())
+        + f"; sweep SA t=16 n=9 {sw[(16, 9)]['keypoints']} keypoints; serving bit-exact at "
+        f"depths 0, 1, 2, 4; scaling 1/2/4 devices (one card repeated)")
+    log(json.dumps({"tools_at_2_rounds": {
+        "exp_off_floor": {r["stage"]: r.get("ms_per_frame") for r in tool_recs["exp_off_floor"][:-1]},
+        "exp_off_prepack": {r["stage"]: r.get("ms_per_frame") for r in tool_recs["exp_off_prepack"][1:-1]},
+        "exp_off_byteswar": tool_recs["exp_off_byteswar"],
+        "serving_link": tool_recs["serving_bench"][0]}}))
+
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
     imgs = torch.from_numpy(batch).to(dev)
     timing = {}
@@ -661,6 +732,39 @@ def main() -> int:
     log(json.dumps({"tiles_ms_per_frame": tt, "spatial_ms_per_frame": sp,
                     "pipeline_ms_per_frame": pt}))
 
+    # -- 4d. the experiment kernels against their plain versions, ms per call
+    imgs = torch.from_numpy(batch).to(dev)
+    plane = exp_off.prepack(imgs)
+    prng = np.random.default_rng(0)
+    preds = {"pred16": pred_planes(256, 0, 2**30), "pred8": pred_planes(128, 0, 2**30)}
+    et = {}
+
+    def device_ms(fn, rounds: int = 20) -> float:
+        """Device ms of one call of ``fn``: its launches queued behind a device sleep."""
+        return loop_ms(fn, dev, rounds=rounds, repeats=7, folded=False)
+
+    for stage in exp_off.FLOORS:
+        et[f"floor_{stage}"] = (
+            device_ms(lambda: exp_off_cuda.FLOORS[stage](imgs)),
+            time_cuda(lambda: exp_off.FLOORS[stage](imgs), repeats=5, inner=2))
+    pp_kw = dict(height=1080, width=1920)
+    et["words_prepacked"] = (
+        device_ms(lambda: exp_off_cuda.words_prepacked(plane, 16, 9, **pp_kw)),
+        time_cuda(lambda: exp_off.words_prepacked(plane, 16, 9, **pp_kw), repeats=3, inner=1))
+    et["prepack"] = (device_ms(lambda: exp_off.prepack(imgs), rounds=5), None)
+    for key, xs in preds.items():
+        et[key] = (device_ms(lambda: getattr(exp_off_cuda, f"swar_{key}")(*xs)),
+                   time_cuda(lambda: getattr(exp_off, f"swar_{key}")(*xs), repeats=5, inner=2))
+    # Kernel times are device times (launches queued behind a device sleep);
+    # plain times are CUDA-event times of the calls as a caller makes them.
+    log(f"timing experiment kernels, one ({BATCH}, 1080, 1920) call (t=16, n=9), ms per frame "
+        f"(kernel device time / plain): " + ", ".join(
+            f"{k} {v[0] / BATCH:.5f} / {v[1] / BATCH:.4f}" if v[1] is not None
+            else f"{k} {v[0] / BATCH:.5f}" for k, v in et.items() if not k.startswith("pred"))
+        + f"; fdf_fast_words OFF {timing['off']['words_ms'] / BATCH:.5f}")
+    log("timing SWAR predicate kernels, ms per call (kernel / plain): " + ", ".join(
+        f"{k} {et[k][0]:.5f} / {et[k][1]:.4f}" for k in preds))
+
     rows = []
     for kname, key, line in (("fdf_fast_words", "words", 949), ("fdf_fast_dense", "dense", 621)):
         rows.append({
@@ -712,6 +816,32 @@ def main() -> int:
                         f"{spatial.HALO}, t=16, n=9, max_threshold",
             "ms_by_mode": {m: tt[m][f"{key}_ms"] for m in tt},
             "plain_ms_by_mode": {m: tt[m][f"plain_{key}_ms"] for m in tt},
+        })
+    for kname, key, replaces, body, at in (
+            ("fdf_off_floor_load", "floor_load", "exp_off_floor.py:87", "k1 :81", "frames"),
+            ("fdf_off_floor_triple", "floor_triple", "exp_off_floor.py:105", "k3 :97",
+             "frames, span 128"),
+            ("fdf_off_floor_prefilter", "floor_prefilter", "exp_off_floor.py:128", "kwin :119",
+             "frames, t=16, need 2"),
+            ("fdf_fast_words_prepacked", "words_prepacked", "exp_off_prepack.py:126",
+             "kernel :73", "frames' prepacked plane, t=16, n=9"),
+            ("fdf_swar_pred16", "pred16", "exp_off_byteswar.py:107", "k16 :60", ""),
+            ("fdf_swar_pred8", "pred8", "exp_off_byteswar.py:107", "k8 :84", "")):
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "feature_detector_fast_tpu_torch/csrc/exp_off.cu",
+            "replaces": f"tools/{replaces}",
+            "body": f"tools/{replaces.split(':')[0]}:{body.split(':')[1]} ({body.split()[0]})",
+            "launches": tool_launches[kname],
+            "max_abs_err": max_err[key],
+            "ms": et[key][0],
+            "plain_ms": et[key][1],
+            "timed_at": (f"one ({BATCH}, 1080, 1920) call over the {at}" if at else
+                         f"one call on the tool's seeded ({64 * (256 if key == 'pred16' else 128)}"
+                         f", 128) int32 planes"),
+            "launches_counted_in": "the tools phase",
+            "ms_is": "device time, launches queued behind a ~2 ms device sleep",
         })
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,0 +1,83 @@
+"""OFF words from a prepacked dual-row plane, against the production words kernel.
+
+Counterpart of the JAX package's ``tools/exp_off_prepack.py``.  The plane
+(ops/exp_off.py ``prepack``: per 128-row tile, 72 int32 rows pairing frame
+row r with row r + 64 in 16-bit fields) is built outside the kernel, as the
+JAX tool builds it in XLA, and ``fdf_fast_words_prepacked`` runs the OFF
+arc test on it.  First the words are checked bit-identical to
+``fdf_fast_words`` OFF (the tool's own assert; a mismatch raises), then,
+on the 1080p frame in a device-resident batch of 64, ms per frame of:
+
+  production          fdf_fast_words OFF
+  prepacked           prepack + fdf_fast_words_prepacked (the JAX tool's
+                      ``prepacked``: the plane is rebuilt every round)
+  prepack             the plain PyTorch prepack alone
+  prepacked_kernel    fdf_fast_words_prepacked on a resident plane
+
+and the deltas to production.  The plane is ~2.4x the frame's bytes, so
+the question the TPU tool asked -- does moving the window build out of the
+kernel pay for the extra traffic? -- is asked again of the H100.
+
+    python -m feature_detector_fast_tpu_torch.tools.exp_off_prepack [--device cpu] [--rounds N]
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from ..config import NonmaxMode
+from ..ops import exp_off, exp_off_cuda, fast_cuda
+from . import _common
+
+BATCH, ROUNDS, REPEATS = 64, 20, 3
+THRESHOLD, COUNT = 16, 9
+
+
+def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS, batch: int = BATCH,
+        frame: np.ndarray = None) -> Iterator[dict]:
+    dev, card = _common.start(device)
+    img = _common.build_1080p_frame() if frame is None else frame
+    imgs = _common.batch_of(img, batch, dev)
+    h, w = img.shape
+    plane = exp_off.prepack(imgs)
+
+    def prepacked(p=None):
+        return exp_off_cuda.words_prepacked(exp_off.prepack(imgs) if p is None else p,
+                                            THRESHOLD, COUNT, height=h, width=w)
+
+    def production():
+        return fast_cuda.detect_words(imgs, THRESHOLD, COUNT, NonmaxMode.OFF)
+
+    got, want = prepacked(plane), production()
+    if not torch.equal(got, want):
+        bad = torch.nonzero(got != want)[:5].tolist()
+        raise AssertionError(f"prepacked words != fdf_fast_words OFF at {bad} "
+                             f"(of {int((got != want).sum())} words)")
+    _common.log("bit-identical vs the production words kernel")
+    base = {"tool": "exp_off_prepack", "batch": batch, "height": h, "width": w,
+            "threshold": THRESHOLD, "count": COUNT, "rounds": rounds, "device": card}
+    yield {**base, "stage": "check", "bit_exact": True,
+           "plane_bytes_per_frame": plane[0].numel() * plane.element_size()}
+    ms = {}
+    for stage, fn in (("production", production), ("prepacked", prepacked),
+                      ("prepack", lambda: exp_off.prepack(imgs)),
+                      ("prepacked_kernel", lambda: prepacked(plane))):
+        ms[stage] = _common.loop_ms(fn, dev, rounds=rounds, repeats=repeats) / batch
+        _common.log(f"{stage}: {ms[stage]:.5f} ms/frame")
+        yield {**base, "stage": stage, "ms_per_frame": ms[stage]}
+    yield {**base, "stage": "delta",
+           "production_minus_prepacked_ms": ms["production"] - ms["prepacked"],
+           "production_minus_prepacked_kernel_ms": ms["production"] - ms["prepacked_kernel"]}
+
+
+def main(argv=None) -> int:
+    args = _common.parser(__doc__, ROUNDS).parse_args(argv)
+    return _common.print_records(run(device=args.device, rounds=args.rounds))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

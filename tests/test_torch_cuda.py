@@ -178,3 +178,59 @@ def test_spatial_list_matches_detect_arrays(device):
             mask, score = spatial.detect_rows_sharded(ref, 16, 9, mode, mesh=mesh)
             k_mask, k_score = fast_cuda.detect_dense(torch.from_numpy(ref)[None].to(device), 16, 9, mode)
             assert torch.equal(mask, k_mask[0].bool()) and torch.equal(score, k_score[0])
+
+
+@pytest.mark.parametrize("stage", ["load", "triple", "prefilter"])
+def test_off_floor_matches_plain(device, stage):
+    """Each OFF floor stage == its plain version on the card (TRIPLE at span
+    128 and 8, PREFILTER at need 2 and 3), one launch per call."""
+    from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
+
+    rng = np.random.default_rng(13)
+    cases = {"load": [()], "triple": [(128,), (8,)], "prefilter": [(16, 9), (16, 12)]}[stage]
+    for shape in [(2, 300, 157), (1, 61, 33), (3, 8, 64)]:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
+        for args in cases:
+            before = exp_off_cuda.LAUNCHES[f"floor_{stage}"]
+            got = exp_off_cuda.FLOORS[stage](imgs, *args)
+            torch.cuda.synchronize()
+            assert exp_off_cuda.LAUNCHES[f"floor_{stage}"] == before + 1
+            want = exp_off.FLOORS[stage](imgs, *args)
+            assert torch.equal(got, want), (shape, args)
+
+
+def test_words_prepacked_matches_words_kernel(device):
+    """The prepacked words kernel == fdf_fast_words OFF and == its plain
+    version, counts 9..=16, t 16 and 32, on frames with a partial last
+    tile and a width off the 32 and 128 grids."""
+    from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
+
+    rng = np.random.default_rng(14)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 301, 157), np.uint8)).to(device)
+    plane = exp_off.prepack(imgs)
+    for count in range(9, 17):
+        for t in (16, 32):
+            before = exp_off_cuda.LAUNCHES["words_prepacked"]
+            got = exp_off_cuda.words_prepacked(plane, t, count, height=301, width=157)
+            torch.cuda.synchronize()
+            assert exp_off_cuda.LAUNCHES["words_prepacked"] == before + 1
+            assert torch.equal(got, fast_cuda.detect_words(imgs, t, count, NonmaxMode.OFF))
+            assert torch.equal(got, exp_off.words_prepacked(plane, t, count, height=301,
+                                                            width=157))
+
+
+@pytest.mark.parametrize("name", ["pred16", "pred8"])
+def test_swar_pred_matches_plain(device, name):
+    """The predicate-sequence kernels == their plain versions on int32
+    planes over the whole range (wrapping adds) and the tool's [0, 2^30)."""
+    from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
+
+    rng = np.random.default_rng(15)
+    for low, high in ((-2**31, 2**31), (0, 2**30)):
+        x, a, b = (torch.from_numpy(rng.integers(low, high, (1000, 128), np.int64)
+                                    .astype(np.int32)).to(device) for _ in range(3))
+        before = exp_off_cuda.LAUNCHES[name]
+        got = getattr(exp_off_cuda, f"swar_{name}")(x, a, b)
+        torch.cuda.synchronize()
+        assert exp_off_cuda.LAUNCHES[name] == before + 1
+        assert torch.equal(got, getattr(exp_off, f"swar_{name}")(x, a, b))

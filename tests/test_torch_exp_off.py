@@ -1,0 +1,395 @@
+"""The plain versions of the OFF-floor experiment kernels, on the CPU,
+against the JAX package's TPU experiment tools.
+
+The tools' Pallas kernel bodies are closures inside their ``main()``, so
+each is restated here from the tool (file:line cited) and run through
+``pl.pallas_call(..., interpret=True)``, as tests/test_pallas.py runs the
+package's kernels.  The same seeded numpy inputs go through both sides.
+Every output is an integer plane, so every comparison is exact: the
+tolerance is zero.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from feature_detector_fast_tpu.config import NonmaxMode as JaxNonmaxMode
+from feature_detector_fast_tpu.geometry import RADIUS
+from feature_detector_fast_tpu.ops import fast_pallas as fp
+from feature_detector_fast_tpu_torch.config import NonmaxMode
+from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda, fast_cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per xdist worker (see tests/test_torch_fast.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def unpack(words: torch.Tensor) -> np.ndarray:
+    """(B, H, n_words) int32 words -> (B, H, 32 * n_words) bool bits."""
+    w = words.numpy().view(np.uint32)
+    bits = (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(*w.shape[:-1], -1).astype(bool)
+
+
+def padded(img: np.ndarray, tile_h: int) -> jax.Array:
+    h, w = img.shape
+    return jnp.pad(jnp.asarray(img), ((0, -h % tile_h), (0, -w % fp.LANES)))
+
+
+def jax_load(img: np.ndarray, tile_h: int = fp.TILE_H) -> np.ndarray:
+    """tools/exp_off_floor.py ``pallas-1in``: body ``k1`` (:81-82), call
+    (:84-94); (hp, 128) int32."""
+    x = padded(img, tile_h)
+    hp, wp = x.shape
+
+    def k1(img_ref, out_ref):
+        out_ref[:, :] = (img_ref[:, :128] & 1).astype(jnp.int32)
+
+    return np.asarray(pl.pallas_call(
+        k1, grid=(hp // tile_h,),
+        in_specs=[pl.BlockSpec((tile_h, wp), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((tile_h, 128), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((hp, 128), jnp.int32),
+        interpret=True,
+    )(x))
+
+
+def jax_triple(img: np.ndarray, tile_h: int = fp.TILE_H) -> np.ndarray:
+    """tools/exp_off_floor.py ``pallas-3in``: body ``k3`` (:97-99), call
+    (:101-116), given ``(x, x, x)`` for its three in_specs (the tool passes
+    one input, which pallas_call refuses); (hp, 128) int32."""
+    x = padded(img, tile_h)
+    hp, wp = x.shape
+    n_tiles = hp // tile_h
+    clamp = lambda v: jnp.clip(v, 0, n_tiles - 1)
+
+    def k3(p_ref, c_ref, n_ref, out_ref):
+        out_ref[:, :] = ((p_ref[:, :128] ^ c_ref[:, :128] ^ n_ref[:, :128])
+                         & 1).astype(jnp.int32)
+
+    return np.asarray(pl.pallas_call(
+        k3, grid=(n_tiles,),
+        in_specs=[
+            pl.BlockSpec((tile_h, wp), lambda i: (clamp(i - 1), 0)),
+            pl.BlockSpec((tile_h, wp), lambda i: (i, 0)),
+            pl.BlockSpec((tile_h, wp), lambda i: (clamp(i + 1), 0)),
+        ],
+        out_specs=pl.BlockSpec((tile_h, 128), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((hp, 128), jnp.int32),
+        interpret=True,
+    )(x, x, x))
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 150), (1, 45, 100)])
+def test_load_matches_pallas_1in(rng, shape):
+    """LOAD == ``k1`` on columns [0, 128) of rows [0, H); 0 past the frame."""
+    imgs = rng.integers(0, 256, shape, np.uint8)
+    bits = unpack(exp_off.floor_load(torch.from_numpy(imgs)))
+    h, w = shape[1:]
+    for i, img in enumerate(imgs):
+        want = jax_load(img)[:h]
+        np.testing.assert_array_equal(bits[i, :, :128], want.astype(bool))
+        assert not bits[i, :, w:].any()
+
+
+@pytest.mark.parametrize("span", [128, 8])
+@pytest.mark.parametrize("shape", [(1, 300, 150), (2, 53, 130), (1, 256, 131)])
+def test_triple_matches_pallas_3in(rng, shape, span):
+    """TRIPLE at span 128 (the tool's tile) and 8 == ``k3`` with that tile
+    height: outer rows clamped to the first and last block, the partial
+    last block's padding read as 0."""
+    imgs = rng.integers(0, 256, shape, np.uint8)
+    bits = unpack(exp_off.floor_triple(torch.from_numpy(imgs), span))
+    h = shape[1]
+    for i, img in enumerate(imgs):
+        np.testing.assert_array_equal(bits[i, :, :128], jax_triple(img, span)[:h].astype(bool))
+
+
+def prefilter_numpy(img: np.ndarray, t: int, count: int) -> np.ndarray:
+    """fast_pallas.py:385-396 restated per pixel in numpy int32, one 16-bit
+    field at a time: bit 9 of p + hb (bright) and cw - p (dark) per
+    cardinal tap, summed, and the biased bit-11 test for >= need; on the
+    interior, 0 elsewhere."""
+    h, w = img.shape
+    x = img.astype(np.int32)
+    hb = (511 - t) - x  # fast_pallas.py:378, one field
+    cw = x + (511 - t)  # :379
+    need = 3 if count >= 12 else 2
+    pad = np.pad(x, RADIUS)
+    nb = np.zeros_like(x)
+    nd = np.zeros_like(x)
+    for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0)):  # NORTH, EAST, SOUTH, WEST
+        p = pad[RADIUS + dy:RADIUS + dy + h, RADIUS + dx:RADIUS + dx + w]
+        nb += (p + hb) & 0x200
+        nd += (cw - p) & 0x200
+    ta = (4 - need) * 512
+    keep = (((nb + ta) | (nd + ta)) & 0x800) != 0
+    interior = np.zeros_like(keep)
+    interior[RADIUS:h - RADIUS, RADIUS:w - RADIUS] = True
+    return keep & interior
+
+
+@pytest.mark.parametrize("t", [0, 16, 60])
+@pytest.mark.parametrize("count", [9, 12, 16])
+def test_prefilter_matches_swar_restatement(rng, count, t):
+    """PREFILTER == the SWAR cardinal prefilter restated in numpy, exactly,
+    on every pixel (the interior rule included)."""
+    imgs = rng.integers(0, 256, (2, 61, 157), np.uint8)
+    imgs[:, 20:40, 30:90] //= 4  # a dark block: both polarities fire at its edges
+    bits = unpack(exp_off.floor_prefilter(torch.from_numpy(imgs), t, count))
+    for i, img in enumerate(imgs):
+        np.testing.assert_array_equal(bits[i, :, :157], prefilter_numpy(img, t, count))
+    assert bits.any()
+
+
+def jax_tile_flags(img: np.ndarray, t: int, count: int) -> np.ndarray:
+    """Per 128-row tile, ``tile_has_candidates`` of
+    fast_pallas._swar_window_prefilter, in interpret mode, with the
+    production halo triple (x, x, x)."""
+    x = padded(img, fp.TILE_H)
+    hp, wp = x.shape
+    n_tiles = hp // fp.TILE_H
+    clamp = lambda v: jnp.clip(v, 0, n_tiles - 1)
+
+    def kflag(p_ref, c_ref, n_ref, out_ref):
+        *_, has = fp._swar_window_prefilter(p_ref, c_ref, n_ref, threshold=t, count=count,
+                                            tile_h=fp.TILE_H)
+        out_ref[:, :] = jnp.broadcast_to(has.astype(jnp.int32), (8, 128))
+
+    flags = pl.pallas_call(
+        kflag, grid=(n_tiles,),
+        in_specs=[
+            pl.BlockSpec((fp.TILE_H, wp), lambda i: (clamp(i - 1), 0)),
+            pl.BlockSpec((fp.TILE_H, wp), lambda i: (i, 0)),
+            pl.BlockSpec((fp.TILE_H, wp), lambda i: (clamp(i + 1), 0)),
+        ],
+        out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((n_tiles * 8, 128), jnp.int32),
+        interpret=True,
+    )(x, x, x)
+    return np.asarray(flags)[::8, 0].astype(bool)
+
+
+@pytest.mark.parametrize("count", [9, 12])
+def test_prefilter_empty_tiles_agree(rng, count):
+    """No 128-row tile that the JAX prefilter flags as empty has an interior
+    keep bit.  One direction only: the JAX plane also covers border rows
+    and lanes that wrap around the padded width, which the interior rule
+    masks, so a tile the JAX test keeps may have no keep bit here."""
+    img = rng.integers(0, 256, (384, 256), np.uint8)
+    img[112:272] = 77  # tile 1 (rows 128..255) and every row its taps reach: flat
+    flags = jax_tile_flags(img, 16, count)
+    assert flags.tolist() == [True, False, True]
+    bits = unpack(exp_off.floor_prefilter(torch.from_numpy(img)[None], 16, count))[0]
+    for i, has in enumerate(flags):
+        if not has:
+            assert not bits[i * fp.TILE_H:(i + 1) * fp.TILE_H].any()
+    assert bits.any()
+
+
+def jax_prepack(image: np.ndarray) -> np.ndarray:
+    """tools/exp_off_prepack.py ``prepack`` (:51-71), over JAX."""
+    h, w = image.shape
+    hp, wp = fp.padded_height(h), fp.padded_width(w)
+    imgp = jnp.pad(jnp.asarray(image), ((0, hp - h), (0, wp - w)))
+    n_tiles = hp // fp.TILE_H
+    half = fp.TILE_H // 2
+    n = half + 2 * RADIUS + 2
+    ti = np.arange(n_tiles)[:, None]
+    jj = np.arange(n)[None, :]
+    base = ti * fp.TILE_H + jj - RADIUS
+    lo_idx = np.clip(base, 0, hp - 1).reshape(-1)
+    hi_idx = np.clip(base + half, 0, hp - 1).reshape(-1)
+    lo = jnp.take(imgp, jnp.asarray(lo_idx), axis=0).astype(jnp.int32)
+    hi = jnp.take(imgp, jnp.asarray(hi_idx), axis=0).astype(jnp.int32)
+    return np.asarray(lo | (hi << 16))
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 150), (1, 128, 128), (1, 7, 9)])
+def test_prepack_matches_tool(rng, shape):
+    """The plain prepack == the tool's prepack, array-equal, frame by frame:
+    (n_tiles * 72, wp) int32."""
+    imgs = rng.integers(0, 256, shape, np.uint8)
+    plane = exp_off.prepack(torch.from_numpy(imgs))
+    assert plane.dtype == torch.int32 and plane.shape[1] % exp_off.PACKED_ROWS == 0
+    for i, img in enumerate(imgs):
+        assert np.array_equal(plane[i].numpy(), jax_prepack(img))
+
+
+@pytest.mark.parametrize("count", [9, 12, 16])
+def test_words_prepacked_matches_production(rng, count):
+    """Words from the prepacked plane == fast_pallas.detect_words_padded OFF
+    (interpret mode), cropped to H rows and ceil(W/32) words, on frames
+    that span two 128-row tiles; exact.  Also through the wrapper on a CPU
+    tensor, which leaves the launch counters alone."""
+    img = rng.integers(0, 256, (150, 200), np.uint8)
+    img[40:100, 60:140] //= 3
+    t = 16 if count < 16 else 8
+    want = np.asarray(fp.detect_words_padded(img, t, count, JaxNonmaxMode.OFF, True))[:150, :7]
+    plane = exp_off.prepack(torch.from_numpy(img)[None])
+    words = exp_off.words_prepacked(plane, t, count, height=150, width=200)
+    assert words.shape == (1, 150, 7) and words.dtype == torch.int32
+    np.testing.assert_array_equal(words[0].numpy(), want)
+    assert words.any()
+    before = dict(exp_off_cuda.LAUNCHES)
+    assert torch.equal(exp_off_cuda.words_prepacked(plane, t, count, height=150, width=200),
+                       words)
+    assert exp_off_cuda.LAUNCHES == before
+
+
+def test_words_prepacked_matches_words_kernel_plain(rng):
+    """On a batch with a partial last tile and a width off the 128 grid, the
+    prepacked words == the words entry point's CPU path, every count."""
+    imgs = rng.integers(0, 256, (2, 141, 99), np.uint8)
+    plane = exp_off.prepack(torch.from_numpy(imgs))
+    for count in range(9, 17):
+        want = fast_cuda.detect_words(torch.from_numpy(imgs), 16, count, NonmaxMode.OFF)
+        got = exp_off.words_prepacked(plane, 16, count, height=141, width=99)
+        assert torch.equal(got, want), count
+
+
+# tools/exp_off_byteswar.py, :46-52 and the kernel bodies k16 (:60-82) and
+# k8 (:84-99), restated.
+def _i32c(v):
+    return int(np.int32(np.uint32(v & 0xFFFFFFFF)))
+
+
+_H = _i32c(0x80808080)
+_L7 = _i32c(0x7F7F7F7F)
+_FF = 0x00010001
+_M9 = _i32c(0x200 * _FF)
+_TAPS = 16
+
+
+def k16(x_ref, hb_ref, cw_ref, o_ref):
+    p = x_ref[:, :]
+    hb = hb_ref[:, :]
+    cw = cw_ref[:, :]
+    bright = jnp.zeros_like(p)
+    dark = jnp.zeros_like(p)
+    for k in range(_TAPS):
+        q = p + hb
+        r = cw - p
+        s = 9 - k
+        if s > 0:
+            b = (q >> s) & _i32c(_FF << k)
+            d = (r >> s) & _i32c(_FF << k)
+        elif s == 0:
+            b = q & _M9
+            d = r & _M9
+        else:
+            b = (q << (-s)) & _i32c((_FF << k) & 0xFFFFFFFF)
+            d = (r << (-s)) & _i32c((_FF << k) & 0xFFFFFFFF)
+        bright = bright | b
+        dark = dark | d
+        p = p + 1
+    o_ref[:, :] = bright ^ dark
+
+
+def k8(x_ref, hi_ref, lo_ref, o_ref):
+    p = x_ref[:, :]
+    hi = hi_ref[:, :]
+    lo = lo_ref[:, :]
+    planes = [jnp.zeros_like(p), jnp.zeros_like(p)]
+    for k in range(_TAPS):
+        for which, (x, y) in enumerate(((hi, p), (p, lo))):
+            w = ((x & _L7) | _H) - (y & _L7)
+            r = ((~x & y) | (~(x ^ y) & ~w)) & _H
+            s = 7 - (k % 8)
+            bit = (r >> s) & _i32c((0x01010101 << (k % 8))
+                                   & 0xFFFFFFFF) if s else r
+            planes[k // 8] = planes[k // 8] | bit
+        p = p + _i32c(0x01010101)
+    o_ref[:, :] = planes[0] ^ planes[1]
+
+
+def jax_pred(kern, x, a, b, rows):
+    """The tool's pallas_call (:107-115) at a grid of 4 programs."""
+    grid = x.shape[0] // rows
+    return np.asarray(pl.pallas_call(
+        kern, grid=(grid,),
+        in_specs=[pl.BlockSpec((rows, 128), lambda i: (i, 0))] * 3,
+        out_specs=pl.BlockSpec((rows, 128), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct(x.shape, jnp.int32),
+        interpret=True,
+    )(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("low", [-2**31, 0], ids=["full_range", "tool_range"])
+@pytest.mark.parametrize("name", ["pred16", "pred8"])
+def test_swar_pred_matches_tool(rng, name, low):
+    """pred16 / pred8 == k16 / k8 in interpret mode, exactly, on seeded
+    planes over the whole int32 range (where ``p + hb``, ``cw - p`` and the
+    byte compare's subtraction overflow and wrap) and over the tool's
+    [0, 2^30)."""
+    rows = 8
+    high = 2**31 if low < 0 else 2**30
+    x, a, b = (rng.integers(low, high, (4 * rows, 128), np.int64).astype(np.int32)
+               for _ in range(3))
+    kern, plain = (k16, exp_off.swar_pred16) if name == "pred16" else (k8, exp_off.swar_pred8)
+    got = plain(*(torch.from_numpy(v) for v in (x, a, b)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), jax_pred(kern, x, a, b, rows))
+    before = dict(exp_off_cuda.LAUNCHES)
+    wrapped = getattr(exp_off_cuda, f"swar_{name}")(*(torch.from_numpy(v) for v in (x, a, b)))
+    assert torch.equal(wrapped, got) and exp_off_cuda.LAUNCHES == before
+
+
+def test_floor_wrapper_on_cpu(rng):
+    """The floor entry points on a CPU tensor are the plain versions, each
+    stage with its own arguments; the kernel counters do not move."""
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 37, 70), np.uint8))
+    before = dict(exp_off_cuda.LAUNCHES)
+    assert exp_off_cuda.FLOORS.keys() == exp_off.FLOORS.keys() == {"load", "triple", "prefilter"}
+    for stage, args in (("load", ()), ("triple", (16,)), ("prefilter", (20, 12))):
+        got = exp_off_cuda.FLOORS[stage](imgs, *args)
+        assert got.shape == (2, 37, 3) and got.dtype == torch.int32
+        assert torch.equal(got, exp_off.FLOORS[stage](imgs, *args))
+    assert exp_off_cuda.LAUNCHES == before
+
+
+def test_wrappers_validate_arguments():
+    """Wrong dtype, rank, span, threshold, count, an argument the stage does
+    not read, a plane shape or mismatched planes are refused before any
+    launch."""
+    img = torch.zeros((1, 16, 40), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        exp_off_cuda.floor_load(img.to(torch.int32))
+    with pytest.raises(ValueError):
+        exp_off_cuda.floor_load(img[0])
+    with pytest.raises(TypeError):
+        exp_off_cuda.floor_load(img, span=8)
+    with pytest.raises(TypeError):
+        exp_off_cuda.floor_triple(img, threshold=16)
+    with pytest.raises(TypeError):
+        exp_off_cuda.floor_prefilter(img, span=8)
+    with pytest.raises(ValueError):
+        exp_off_cuda.floor_triple(img, span=0)
+    with pytest.raises(ValueError):
+        exp_off_cuda.floor_prefilter(img, threshold=256)
+    with pytest.raises(ValueError):
+        exp_off_cuda.floor_prefilter(img, count=8)
+    with pytest.raises(ValueError):
+        exp_off_cuda.floor_load(img.to("meta"))
+    plane = exp_off.prepack(img)
+    with pytest.raises(ValueError):
+        exp_off_cuda.words_prepacked(plane[:, 1:], 16, 9, height=16, width=40)
+    with pytest.raises(ValueError):
+        exp_off_cuda.words_prepacked(plane, 16, 9, height=129, width=40)
+    with pytest.raises(ValueError):
+        exp_off_cuda.words_prepacked(plane, 16, 9, height=16, width=129)
+    with pytest.raises(TypeError):
+        exp_off_cuda.words_prepacked(plane.to(torch.int64), 16, 9, height=16, width=40)
+    x = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        exp_off_cuda.swar_pred16(x, x, x[:4])
+    with pytest.raises(TypeError):
+        exp_off_cuda.swar_pred8(x, x, x.to(torch.int64))
