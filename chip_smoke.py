@@ -27,10 +27,19 @@ launch counters zeroed just before it and read just after:
   kernels of ``csrc/exp_off.cu`` -- against the golden counts and their own
   bit-exact checks.
 
-It then times kernels, plain versions, batch detection, the front-end,
-the patched-vs-dense describe crossover at (16, 1080, 1920), the
-row-shard kernels and multi-device paths against their single-device
-counterparts, and the experiment kernels.
+It then times the FAST kernels' device time against their bounds
+(``tools.fast_bench``: words and dense at 1, 16 and 64 frames of 1080p,
+the row-shard forms on one frame in 8 shards), and kernels, plain versions,
+batch detection, the front-end, the patched-vs-dense describe crossover at
+(16, 1080, 1920), the row-shard kernels and multi-device paths against
+their single-device counterparts, and the experiment kernels.  Every
+kernel's row in the ``kernels`` line carries its bound (``tools._common``:
+bytes at 3.35 TB/s or integer operations at 16.7 T/s, from this run's
+shapes and data), its launches on its main path, and ``library_ms`` null
+with the reason no single PyTorch call computes the same function.  The
+build's ``-Xptxas -v`` log gives registers, shared memory and spills of
+every ``fast.cu`` instantiation; a spill, or an OFF instantiation above
+32 registers, fails the run.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +139,28 @@ def feature_hash(kps, desc, dvalid) -> int:
     return hash_features(kps.xy.cpu(), kps.score.cpu(), kps.valid.cpu(), desc.cpu(), dvalid.cpu())
 
 
+MODE_NAMES = ("off", "max_threshold", "sum_absolute")
+
+
+def ptxas_entries(build_log: str):
+    """(entry function, registers, shared-memory bytes, spill bytes) for each
+    kernel of an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m[1], 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name is not None:
+            out.append((name, int(m[1]), int(m[2]), spill))
+            name = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
@@ -145,8 +177,8 @@ def main() -> int:
     from feature_detector_fast_tpu_torch.parallel import (
         frontend as dp, mesh as meshlib, pipeline, spatial)
     from feature_detector_fast_tpu_torch.tools import (
-        acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, frontend_bench,
-        resolution_bench, scaling_bench, serving_bench, sweep)
+        _common, acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, fast_bench,
+        frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
     from feature_detector_fast_tpu_torch.tools._common import loop_ms, time_cuda, time_host
     from feature_detector_fast_tpu_torch.utils import cuda_build
     from feature_detector_fast_tpu_torch.utils.hashing import hash_image, hash_keypoints
@@ -169,10 +201,31 @@ def main() -> int:
     log(f"build: csrc/{{{','.join(SOURCES)}}} in {time.perf_counter() - t0:.2f} s, in parallel "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     for source in SOURCES:
+        if source == "fast.cu":
+            continue
         used = [line.strip() for line in cuda_build.build_log(source).splitlines()
                 if "Used" in line or "spill" in line]
         for line in sorted(set(used)):
             log(f"  ptxas {source}: {line}")
+    # fast.cu: one instantiation per count x mode x form x strip height;
+    # registers, shared memory and spills per mode, form and height.
+    fast_ptxas = {}
+    for name, regs, smem, spill in ptxas_entries(cuda_build.build_log("fast.cu")):
+        m = re.search(r"fast_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)ELi(\d+)E", name)
+        check(m is not None, f"unexpected entry function in fast.cu: {name}")
+        key = (MODE_NAMES[int(m[2])], ("words" if m[3] == "1" else "dense")
+               + ("_tiles" if m[4] == "1" else "") + f", {m[5]}-row strips")
+        fast_ptxas.setdefault(key, []).append((int(m[1]), regs, smem, spill))
+    check(len(fast_ptxas) == 24 and all(len(v) == 8 for v in fast_ptxas.values()),
+          "fast.cu: expected 8 counts x 3 modes x 4 forms x 2 strip heights")
+    for (mode_name, form), v in sorted(fast_ptxas.items()):
+        regs = [r for _, r, _, _ in v]
+        log(f"  ptxas fast.cu {mode_name} {form}, counts 9..16: registers "
+            f"{min(regs)}-{max(regs)} ({' '.join(str(r) for _, r, _, _ in sorted(v))}), "
+            f"smem {max(sm for _, _, sm, _ in v)} B, spills {sum(sp for *_, sp in v)} B")
+        check(all(sp == 0 for *_, sp in v), f"fast.cu {mode_name} {form} spills")
+        check(mode_name != "off" or max(regs) <= 32,
+              f"fast.cu off {form} uses {max(regs)} registers (> 32: below full occupancy)")
 
     modes = list(NonmaxMode)
     ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
@@ -189,9 +242,16 @@ def main() -> int:
         "rand_3x61x157": rng.integers(0, 256, (3, 61, 157), np.uint8),
         "rand_2x256x320": rng.integers(0, 256, (2, 256, 320), np.uint8),
         "rand_2x7x9": rng.integers(0, 256, (2, 7, 9), np.uint8),
+        # Heights off the 32-row strip, widths off the 32- and 128-column
+        # grids, and odd H * W, so every frame after the first starts at
+        # an unaligned address.
+        "rand_3x45x157": rng.integers(0, 256, (3, 45, 157), np.uint8),
+        "rand_3x37x1931": rng.integers(0, 256, (3, 37, 1931), np.uint8),
+        "rand_1x70x8200": rng.integers(0, 256, (1, 70, 8200), np.uint8),
         "ref_200x300": ref[None],
         "golden_1080x1920": g1080[None],
         f"batch_{BATCH}x1080x1920": batch,
+        "batch_4x1080x1920": batch[:4],  # 16-row strips (32 and 8 above)
     }
     max_err = {"words": 0, "dense": 0}
     for name, arr in inputs.items():
@@ -604,6 +664,20 @@ def main() -> int:
         "serving_link": tool_recs["serving_bench"][0]}}))
 
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
+    def device_ms(fn, rounds: int = 20) -> float:
+        """Device ms of one call of ``fn``: its launches queued behind a device sleep."""
+        return loop_ms(fn, dev, rounds=rounds, repeats=7, folded=False)
+
+    # The FAST kernels' device time against their bounds: words and dense
+    # on 1 frame, 16 (33 MB, in L2) and 64 (133 MB), tiles on one frame in
+    # 8 shards (tools.fast_bench).
+    fb = {(r["kernel"], r["mode"], r["at"]): r for r in fast_bench.run(device="cuda")}
+    for (kname, mode_name, at), r in fb.items():
+        log(f"timing {kname} {mode_name} {at}: {r['ms']:.5f} ms a call (device), bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['int_ops']} int ops, {r['bytes']} B, "
+            f"{r['candidates']} of {r['pixels']} px past the prefilter, {r['corners']} arc-test "
+            f"corners), {100 * r['share_of_bound']:.1f}% of the bound")
+
     imgs = torch.from_numpy(batch).to(dev)
     timing = {}
     for mode in modes:
@@ -620,11 +694,9 @@ def main() -> int:
             list(pipe.drain())
 
         r = {
-            "words_ms": time_cuda(lambda: fast_cuda.detect_words(*args)),
             "plain_words_ms": time_cuda(
                 lambda: compact.pack_mask_words(fast.detect_dense(*args)[0]),
                 repeats=5, inner=2),
-            "dense_ms": time_cuda(lambda: fast_cuda.detect_dense(*args)),
             "plain_dense_ms": time_cuda(lambda: fast.detect_dense(*args), repeats=5, inner=2),
             # detect_batch_arrays end to end, host array in, lists out ...
             "e2e_ms": time_host(lambda: api.detect_batch_arrays(batch, cfg)),
@@ -642,14 +714,16 @@ def main() -> int:
     # -- 4b. front-end timing at (16, 1080, 1920), k=1000 ------------------
     kps = fe[(1000, False)][0]
     blurred = brief.box_blur5(imgs)
+    # Kernel times are device times (launches queued behind a device sleep);
+    # plain times are CUDA-event times of the calls as a caller makes them.
     ft = {
-        "brief_words_ms": time_cuda(lambda: brief_cuda.describe_words(imgs)),
+        "brief_words_ms": device_ms(lambda: brief_cuda.describe_words(imgs), rounds=5),
         "plain_brief_words_ms": time_cuda(lambda: brief_cuda.describe_words_plain(imgs),
                                           repeats=3, inner=1),
-        "extract_windows_ms": time_cuda(lambda: patch_cuda.extract_windows_fused(imgs, kps.xy)),
+        "extract_windows_ms": device_ms(lambda: patch_cuda.extract_windows_fused(imgs, kps.xy)),
         "plain_extract_windows_ms": time_cuda(
             lambda: patch_cuda.extract_windows_plain(imgs, kps.xy), repeats=5, inner=2),
-        "extract_patches_ms": time_cuda(lambda: patch_cuda.extract_patches(blurred, kps.xy)),
+        "extract_patches_ms": device_ms(lambda: patch_cuda.extract_patches(blurred, kps.xy)),
         "plain_extract_patches_ms": time_cuda(
             lambda: patch_cuda.extract_patches_plain(blurred, kps.xy), repeats=5, inner=2),
     }
@@ -739,10 +813,6 @@ def main() -> int:
     preds = {"pred16": pred_planes(256, 0, 2**30), "pred8": pred_planes(128, 0, 2**30)}
     et = {}
 
-    def device_ms(fn, rounds: int = 20) -> float:
-        """Device ms of one call of ``fn``: its launches queued behind a device sleep."""
-        return loop_ms(fn, dev, rounds=rounds, repeats=7, folded=False)
-
     for stage in exp_off.FLOORS:
         et[f"floor_{stage}"] = (
             device_ms(lambda: exp_off_cuda.FLOORS[stage](imgs)),
@@ -761,60 +831,125 @@ def main() -> int:
         f"(kernel device time / plain): " + ", ".join(
             f"{k} {v[0] / BATCH:.5f} / {v[1] / BATCH:.4f}" if v[1] is not None
             else f"{k} {v[0] / BATCH:.5f}" for k, v in et.items() if not k.startswith("pred"))
-        + f"; fdf_fast_words OFF {timing['off']['words_ms'] / BATCH:.5f}")
+        + f"; fdf_fast_words OFF {fb[('fdf_fast_words', 'off', f'batch {BATCH}')]['ms'] / BATCH:.5f}")
     log("timing SWAR predicate kernels, ms per call (kernel / plain): " + ", ".join(
         f"{k} {et[k][0]:.5f} / {et[k][1]:.4f}" for k in preds))
 
+    # Bounds of this run's calls (tools._common): the least time the card
+    # could take for the same work, by its bytes (each input read once,
+    # each output written once, at 3.35 TB/s) or by its integer operations
+    # (at 16.7 T lane-operations/s), whichever is larger.
+    xy_np = kps.xy.cpu().numpy()
+    bounds = {
+        "brief_words": _common.brief_words_bound(BATCH, 1080, 1920),
+        "extract_windows": _common.extract_windows_bound(xy_np, 1080, 1920),
+        "extract_patches": _common.extract_patches_bound(xy_np, 1080, 1920),
+        "words_prepacked": _common.words_prepacked_bound(
+            plane.numel() * plane.element_size(), BATCH, 1080, 1920),
+        **{f"floor_{stage}": _common.floor_bound(stage, BATCH, 1080, 1920)
+           for stage in exp_off.FLOORS},
+        **{key: _common.swar_pred_bound(key, xs[0].numel()) for key, xs in preds.items()},
+    }
+    # No single PyTorch call computes any of these functions, so no row
+    # has a library yardstick; each says why.
+    no_library = {
+        "fast": "no PyTorch call computes the FAST arc test, score and 3x3 strict-max nonmax",
+        "brief_words": "no PyTorch call computes the blur and 256 pattern compares packed into "
+                       "bits",
+        "extract_windows": "no PyTorch call cuts a blurred, raw-packed window per keypoint",
+        "extract_patches": "no single PyTorch call cuts a clamped (32, 128) window per keypoint",
+        "floor": "no single PyTorch call packs a per-pixel predicate into 32-px words",
+        "pred": "the predicate sequence is a chain of elementwise operations, not one call",
+    }
+
+    def measured(b: dict, library: str) -> dict:
+        basis = f"{b['int_ops']} int ops, {b['bytes']} B"
+        if "candidates" in b:
+            basis += (f"; {b['pixels']} px, {b['candidates']} past the prefilter, "
+                      f"{b['corners']} arc-test corners")
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bound_basis": basis,
+                "share_of_bound": None, "library_ms": None, "library_note": no_library[library]}
+
     rows = []
-    for kname, key, line in (("fdf_fast_words", "words", 949), ("fdf_fast_dense", "dense", 621)):
+    fast_device = "device time (tools.fast_bench: loop_ms, launches queued behind a device sleep)"
+    for kname, key, line, path in (
+            ("fdf_fast_words", "words", 949,
+             "1 per detect / detect_arrays / detect_batch_* call and DetectorPipeline batch"),
+            ("fdf_fast_dense", "dense", 621,
+             "1 per front-end batch, strongest-K step, data-parallel shard run, pipeline frame")):
+        mt = fb[(kname, "max_threshold", f"batch {BATCH}")]
         rows.append({
             "name": kname,
             "route": "cuda",
             "source": "feature_detector_fast_tpu_torch/csrc/fast.cu",
             "replaces": f"feature_detector_fast_tpu/ops/fast_pallas.py:{line}",
             "launches": launches[key],
+            "launches_per_call": 1,
+            "main_path": path,
             "max_abs_err": max_err[key],
-            "ms": timing["max_threshold"][f"{key}_ms"],
+            "ms": mt["ms"],
             "plain_ms": timing["max_threshold"][f"plain_{key}_ms"],
+            **measured(mt, "fast"),
+            "share_of_bound": mt["share_of_bound"],
             "timed_at": f"one ({BATCH}, 1080, 1920) call, t=16, n=9, max_threshold",
-            "ms_by_mode": {m: timing[m][f"{key}_ms"] for m in timing},
+            "ms_is": fast_device,
+            "ms_by_mode": {m: fb[(kname, m, f"batch {BATCH}")]["ms"] for m in MODE_NAMES},
+            "bound_ms_by_mode": {m: fb[(kname, m, f"batch {BATCH}")]["bound_ms"]
+                                 for m in MODE_NAMES},
+            "ms_by_mode_64_frames": {m: fb[(kname, m, "batch 64")]["ms"] for m in MODE_NAMES},
+            "ms_by_mode_1_frame": {m: fb[(kname, m, "batch 1")]["ms"] for m in MODE_NAMES},
+            "bound_ms_by_mode_64_frames": {m: fb[(kname, m, "batch 64")]["bound_ms"]
+                                           for m in MODE_NAMES},
             "plain_ms_by_mode": {m: timing[m][f"plain_{key}_ms"] for m in timing},
         })
     fe_at = f"one call at the {BATCH} x 1000 keypoints of the k=1000 front-end, ({BATCH}, 1080, 1920)"
-    for kname, key, source, replaces, n, at in (
+    for kname, key, source, replaces, n, at, path in (
             ("fdf_brief_words", "brief_words", "brief.cu", "brief_pallas.py:47",
-             fe_launches["fdf_brief_words"], f"one ({BATCH}, 1080, 1920) call, every pixel"),
+             fe_launches["fdf_brief_words"], f"one ({BATCH}, 1080, 1920) call, every pixel",
+             "1 per front-end batch on the dense route (k > 13000); none at k=1000"),
             ("fdf_extract_windows", "extract_windows", "patch.cu", "patch_pallas.py:147",
-             fe_launches["fdf_extract_windows"], fe_at),
+             fe_launches["fdf_extract_windows"], fe_at,
+             "1 per front-end batch on the patched route (k <= 13000, every oriented call)"),
             ("fdf_extract_patches", "extract_patches", "patch.cu", "patch_pallas.py:69",
-             patches_launches, fe_at + ", on the blurred frames")):
+             patches_launches, fe_at + ", on the blurred frames", "none (tests only)")):
         rows.append({
             "name": kname,
             "route": "cuda",
             "source": f"feature_detector_fast_tpu_torch/csrc/{source}",
             "replaces": f"feature_detector_fast_tpu/ops/{replaces}",
             "launches": n,
+            "launches_per_call": 1,
+            "main_path": path,
             "max_abs_err": max_err[key],
             "ms": ft[f"{key}_ms"],
             "plain_ms": ft[f"plain_{key}_ms"],
+            **measured(bounds[key], key),
             "timed_at": at,
+            "ms_is": "device time (loop_ms, launches queued behind a device sleep)",
         })
     rows[3]["also_replaces"] = "feature_detector_fast_tpu/ops/patch_pallas.py:123"
     rows[4]["launches_counted_in"] = "the kernel phase (no main path runs extract_patches)"
     for kname, key, line in (("fdf_fast_dense_tiles", "dense_tiles", 647),
                              ("fdf_fast_words_tiles", "words_tiles", 1029)):
+        mt = fb[(kname, "max_threshold", "8 shards")]
         rows.append({
             "name": kname,
             "route": "cuda",
             "source": "feature_detector_fast_tpu_torch/csrc/fast.cu",
             "replaces": f"feature_detector_fast_tpu/ops/fast_pallas.py:{line}",
             "launches": mc_launches[kname],
+            "launches_per_call": 1,
+            "main_path": "1 per device per row-sharded call (every shard on a device in one)",
             "max_abs_err": max_err[key],
-            "ms": tt["max_threshold"][f"{key}_ms"],
+            "ms": mt["ms"],
             "plain_ms": tt["max_threshold"][f"plain_{key}_ms"],
+            **measured(mt, "fast"),
+            "share_of_bound": mt["share_of_bound"],
             "timed_at": f"one call over a 1080p frame in 8 shards of {rows8} rows, halo "
                         f"{spatial.HALO}, t=16, n=9, max_threshold",
-            "ms_by_mode": {m: tt[m][f"{key}_ms"] for m in tt},
+            "ms_is": fast_device,
+            "ms_by_mode": {m: fb[(kname, m, "8 shards")]["ms"] for m in MODE_NAMES},
+            "bound_ms_by_mode": {m: fb[(kname, m, "8 shards")]["bound_ms"] for m in MODE_NAMES},
             "plain_ms_by_mode": {m: tt[m][f"plain_{key}_ms"] for m in tt},
         })
     for kname, key, replaces, body, at in (
@@ -834,15 +969,25 @@ def main() -> int:
             "replaces": f"tools/{replaces}",
             "body": f"tools/{replaces.split(':')[0]}:{body.split(':')[1]} ({body.split()[0]})",
             "launches": tool_launches[kname],
+            "launches_per_call": 1,
+            "main_path": "1 per timed round of its tool (tools/exp_off_*), on no product path",
             "max_abs_err": max_err[key],
             "ms": et[key][0],
             "plain_ms": et[key][1],
+            **measured(bounds[key], "pred" if key.startswith("pred") else
+                       "floor" if key.startswith("floor") else "fast"),
             "timed_at": (f"one ({BATCH}, 1080, 1920) call over the {at}" if at else
                          f"one call on the tool's seeded ({64 * (256 if key == 'pred16' else 128)}"
                          f", 128) int32 planes"),
             "launches_counted_in": "the tools phase",
             "ms_is": "device time, launches queued behind a ~2 ms device sleep",
         })
+    for row in rows:
+        if row["share_of_bound"] is None:
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"kernel {row['name']}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by "
+            f"{row['bound_by']} ({row['bound_basis']}), {100 * row['share_of_bound']:.1f}% of "
+            f"the bound; launches on its path {row['launches']}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

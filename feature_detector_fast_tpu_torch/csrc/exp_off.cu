@@ -16,10 +16,12 @@
 // and k8 :84).  The plain PyTorch versions are ops/exp_off.py;
 // ops/exp_off_cuda.py checks arguments and launches.
 //
-// Design.  The floors and the prepacked kernel keep fdf_fast_words' grid
-// and store: a 32 x 8 block, the frame in gridDim.z, one thread per pixel,
-// and a warp's __ballot_sync of the keep flags as the packed word, which
-// lane 0 stores.  So each floor is fdf_fast_words with stages taken away:
+// Design.  The floors and the prepacked kernel keep the grid and store
+// fdf_fast_words had when they were written: a 32 x 8 block, the frame in
+// gridDim.z, one thread per pixel, and a warp's __ballot_sync of the keep
+// flags as the packed word, which lane 0 stores.  So each floor is that
+// 32 x 8 kernel with stages taken away (fast.cu has since moved to
+// 128-column strips, so the floors no longer split its time into stages):
 //
 //   LOAD       stages the block's own 32 x 8 u8 tile (no halo); keep = px & 1
 //   TRIPLE     stages three 32 x 8 tiles, the block's and the ones `span`
@@ -30,7 +32,7 @@
 //              taps bright) or (>= need dark), strict int32 compares, 0
 //              outside x in [3, W-4], y in [3, H-4]
 //
-// and fdf_fast_words OFF minus PREFILTER is the arc test itself.  The TPU
+// and the 32 x 8 kernel's OFF time minus PREFILTER is its arc test.  The TPU
 // pallas-win kernel cannot run as written (one input for three in_specs, a
 // (64, 128) value stored into a (128, 128) block, and an output that is 0
 // everywhere); PREFILTER measures what it was meant to: the window build

@@ -87,10 +87,11 @@ def floor_triple(images: torch.Tensor, span: int = TILE_H) -> torch.Tensor:
     return compact.pack_mask_words(((prev ^ images ^ nxt) & 1).to(torch.bool))
 
 
-def floor_prefilter(images: torch.Tensor, threshold: int = 16, count: int = 9) -> torch.Tensor:
-    """The ``PREFILTER`` floor: at every pixel with x in [3, W-4] and y in
-    [3, H-4], (at least ``need_for(count)`` of the 4 cardinal taps bright)
-    or (as many dark), compares strict in int32; 0 elsewhere."""
+def prefilter_mask(images: torch.Tensor, threshold: int = 16, count: int = 9) -> torch.Tensor:
+    """The cardinal prefilter as a bool (B, H, W) mask: at every pixel with
+    x in [3, W-4] and y in [3, H-4], (at least ``need_for(count)`` of the 4
+    cardinal taps bright) or (as many dark), compares strict in int32;
+    False elsewhere."""
     b, h, w = images.shape
     t, need = int(threshold), need_for(count)
     x = images.to(_I32)
@@ -98,8 +99,12 @@ def floor_prefilter(images: torch.Tensor, threshold: int = 16, count: int = 9) -
     card = [taps[i] for i in (NORTH, EAST, SOUTH, WEST)]
     nb = sum((p - x > t).to(_I32) for p in card)
     nd = sum((x - p > t).to(_I32) for p in card)
-    keep = ((nb >= need) | (nd >= need)) & fast.interior_mask((h, w), images.device)
-    return compact.pack_mask_words(keep)
+    return ((nb >= need) | (nd >= need)) & fast.interior_mask((h, w), images.device)
+
+
+def floor_prefilter(images: torch.Tensor, threshold: int = 16, count: int = 9) -> torch.Tensor:
+    """The ``PREFILTER`` floor: :func:`prefilter_mask`, packed."""
+    return compact.pack_mask_words(prefilter_mask(images, threshold, count))
 
 
 #: The floor stages by name (the tools' and the launch counters' names).

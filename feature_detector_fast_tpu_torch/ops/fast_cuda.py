@@ -6,12 +6,13 @@ Replaces the TPU kernels of ``feature_detector_fast_tpu/ops/fast_pallas.py``:
 becomes :func:`detect_dense`, and their row-shard forms ``_kernel_words_tiles``
 (:1029, entry ``detect_words_tiles``) and ``_kernel_tiles`` (:647, entry
 ``detect_dense_tiles``) become :func:`detect_words_tiles` and
-:func:`detect_dense_tiles`.  One thread per pixel; a warp's ballot over 32
-aligned columns is the packed word, so the words path never writes a dense
-mask.  The kernel is bound by integer instruction throughput (32 compares
-per pixel for the arc test, up to 480 min/max per corner for the
-MaxThreshold score), not by its 1 byte read per pixel; see the note at the
-top of the source.
+:func:`detect_dense_tiles`.  A block walks a 128-column strip, one column
+per lane; a warp's ballot over 32 aligned columns is the packed word, so
+the words path never writes a dense mask.  The words kernel's bound is its
+integer operations (the cardinal prefilter at every pixel, the arc test
+where it passes, nonmax and score at corners), the dense kernel's its
+4 bytes written a pixel; see the note at the top of the source and
+``tools/_common.fast_bound``.
 
 The whole-frame entry points take a (B, H, W) u8 tensor, the tiles entry
 points an (S, rows + 2*halo, W) u8 stack of row-shard slabs and an (S,)
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,7 +46,12 @@ def load_library() -> ctypes.CDLL:
     """Build (on first use) and bind ``csrc/fast.cu``."""
     from ..utils import cuda_build
 
-    lib = cuda_build.load("fast.cu")
+    return bind(cuda_build.load("fast.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``fast.cu``'s entry points on ``lib`` (a
+    build of this source or of another revision with the same interface)."""
     ints = [ctypes.c_int] * 9  # B, H, W, row_offset, height, t, count, mode, device
     lib.fdf_fast_words.argtypes = [ctypes.c_void_p] * 2 + ints + [ctypes.c_void_p]
     lib.fdf_fast_words.restype = ctypes.c_int
@@ -77,17 +83,30 @@ def _check(images: torch.Tensor, threshold: int, count: int, nonmax) -> Config:
     return Config(threshold, count, NonmaxMode(nonmax))
 
 
-def _launch(fn, device: torch.device, *args) -> None:
-    """``fn(*args, device, stream)`` on the device's current stream; raise
-    if the launch reports an error."""
-    err = fn(*args, device.index, torch.cuda.current_stream(device).cuda_stream)
+def _run(lib: ctypes.CDLL, images: torch.Tensor, outs: Tuple[torch.Tensor, ...], cfg: Config,
+         tiles: Optional[Tuple[torch.Tensor, int, int, int]] = None) -> None:
+    """Launch the entry point of ``lib`` that writes ``outs``, (words,) or
+    (mask, score), on the current stream of ``images``' device; raise if
+    the launch reports an error.  ``images`` is a (B, H, W) batch, or with
+    ``tiles`` = (row0, halo, height, width) an (S, rows + 2*halo, pitch)
+    stack of row-shard slabs."""
+    dev = images.device
+    ptrs = [o.data_ptr() for o in outs]
+    if tiles is None:
+        b, h, w = images.shape
+        fn = lib.fdf_fast_words if len(outs) == 1 else lib.fdf_fast_dense
+        args = (images.data_ptr(), *ptrs, b, h, w, 0, h)
+    else:
+        row0, halo, height, width = tiles
+        s, slab_h, pitch = images.shape
+        fn = lib.fdf_fast_words_tiles if len(outs) == 1 else lib.fdf_fast_dense_tiles
+        args = (images.data_ptr(), row0.data_ptr(), *ptrs, s, slab_h - 2 * int(halo), int(halo),
+                int(width), pitch, int(height))
+    err = fn(*args, cfg.threshold, cfg.count, _MODE_CODE[cfg.nonmax], dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        msg = load_library().fdf_error_string(err).decode()
+        msg = lib.fdf_error_string(err).decode()
         raise RuntimeError(f"FAST kernel launch failed: {msg} (cudaError {err})")
-
-
-def _cfg_args(cfg: Config) -> Tuple[int, int, int]:
-    return cfg.threshold, cfg.count, _MODE_CODE[cfg.nonmax]
 
 
 def detect_words(images: torch.Tensor, threshold: int, count: int,
@@ -102,8 +121,7 @@ def detect_words(images: torch.Tensor, threshold: int, count: int,
     words = torch.empty((b, h, -(-w // compact.WORD_BITS)), dtype=torch.int32,
                         device=images.device)
     if words.numel():
-        _launch(load_library().fdf_fast_words, images.device, images.data_ptr(),
-                words.data_ptr(), b, h, w, 0, h, *_cfg_args(cfg))
+        _run(load_library(), images, (words,), cfg)
         LAUNCHES["words"] += 1
     return words
 
@@ -119,9 +137,7 @@ def detect_dense(images: torch.Tensor, threshold: int, count: int,
     mask = torch.empty(images.shape, dtype=torch.uint16, device=images.device)
     score = torch.empty(images.shape, dtype=torch.uint16, device=images.device)
     if images.numel():
-        b, h, w = images.shape
-        _launch(load_library().fdf_fast_dense, images.device, images.data_ptr(),
-                mask.data_ptr(), score.data_ptr(), b, h, w, 0, h, *_cfg_args(cfg))
+        _run(load_library(), images, (mask, score), cfg)
         LAUNCHES["dense"] += 1
     return mask, score
 
@@ -170,9 +186,7 @@ def detect_words_tiles(ext: torch.Tensor, row0: torch.Tensor, threshold: int, co
     s = ext.shape[0]
     words = torch.empty((s, rows, -(-int(width) // compact.WORD_BITS)), dtype=torch.int32,
                         device=ext.device)
-    _launch(load_library().fdf_fast_words_tiles, ext.device, ext.data_ptr(),
-            row0.data_ptr(), words.data_ptr(), s, rows, int(halo), int(width),
-            ext.shape[2], int(height), *_cfg_args(cfg))
+    _run(load_library(), ext, (words,), cfg, (row0, halo, height, width))
     LAUNCHES["words_tiles"] += 1
     return words
 
@@ -190,8 +204,6 @@ def detect_dense_tiles(ext: torch.Tensor, row0: torch.Tensor, threshold: int, co
     s = ext.shape[0]
     mask = torch.empty((s, rows, int(width)), dtype=torch.uint16, device=ext.device)
     score = torch.empty_like(mask)
-    _launch(load_library().fdf_fast_dense_tiles, ext.device, ext.data_ptr(),
-            row0.data_ptr(), mask.data_ptr(), score.data_ptr(), s, rows,
-            int(halo), int(width), ext.shape[2], int(height), *_cfg_args(cfg))
+    _run(load_library(), ext, (mask, score), cfg, (row0, halo, height, width))
     LAUNCHES["dense_tiles"] += 1
     return mask, score

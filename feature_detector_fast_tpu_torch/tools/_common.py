@@ -1,5 +1,7 @@
 """What the port's tools share: the benchmark frame, the device and its
-card line, the timers and the record printer."""
+card line, the timers, the kernels' bounds on the H100 (bytes and integer
+operations counted from the shapes and the data of a call) and the record
+printer."""
 
 from __future__ import annotations
 
@@ -13,8 +15,10 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..api import _device
+from ..ops import exp_off, fast
 from ..utils.image import load_luma8
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -154,6 +158,163 @@ def loop_ms(fn: Callable, device: torch.device, *, rounds: int, repeats: int = 3
             times.append((time.perf_counter() - t0) * 1e3 / rounds)
     int(acc)  # the accumulator is read: no round is left unfinished
     return float(np.median(times))
+
+
+#: The H100 SXM peaks a kernel's bound is taken against (NVIDIA's data
+#: sheet, 700 W): HBM bytes per second, and int32 lane-operations per
+#: second -- 64 INT32 lanes x 132 SMs x 1.98 GHz, the clock behind the
+#: published 67 TFLOP/s fp32.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+
+#: Integer operations of the FAST kernels.  The cardinal prefilter, at
+#: every detectable pixel: 8 cardinal compares, 6 adds, 2 compares against
+#: the need and the OR.  The arc test: 16 bright and 16 dark compares and
+#: 16 for the two wraparound run tests, of which a pixel that passed the
+#: prefilter still needs all but the 8 cardinal compares.  At an arc-test
+#: corner only (elsewhere the score is 0, and a 0 is never kept), the 3x3
+#: nonmax and the score (:func:`fast_score_ops`).
+FAST_PREFILTER_OPS = 17
+FAST_ARC_OPS = 48
+FAST_CARDINAL_COMPARES = 8
+FAST_NONMAX_OPS = 9
+
+
+def fast_score_ops(mode: str, count: int) -> int:
+    """Operations of one corner's score in ``csrc/fast.cu``.  MaxThreshold:
+    16 differences, 2 x 16 3-input min/max for the windows of 3 and 2 x 16
+    for those of 9, 2 x 16 more for two overlapping 9s where count > 9, 2 x
+    8 for the max and min over the 16 starts, 2 absolutes and the min.
+    SumAbsolute: 2 x 16 differences, 2 x 16 add-then-max, the max."""
+    if mode == "max_threshold":
+        return 16 + 64 + (32 if count > 9 else 0) + 16 + 3
+    return {"off": 0, "sum_absolute": 65}[mode]
+
+
+def fast_work(images: torch.Tensor, threshold: int, count: int) -> dict:
+    """What a FAST call's operations depend on in the (B, H, W) u8 batch
+    ``images``, counted frame by frame with the plain versions: the
+    detectable pixels (x in [3, W-4], y in [3, H-4]), those of them that
+    pass the cardinal prefilter, and the arc-test corners.  Beside them, for
+    reading a kernel's time and not for its bound: the warp rows (32
+    aligned columns of one row) and those that hold a candidate, where a
+    warp cannot skip the 16-tap test."""
+    b, h, w = images.shape
+    candidates = corners = busy = 0
+    for frame in images:
+        cand = exp_off.prefilter_mask(frame[None], threshold, count)[0]
+        candidates += int(cand.sum())
+        busy += int(F.pad(cand, (0, -w % 32)).reshape(h, -1, 32).any(-1).sum())
+        corners += int(fast.detect_mask(frame, threshold, count).sum())
+    return {"pixels": b * max(h - 6, 0) * max(w - 6, 0), "candidates": candidates,
+            "corners": corners, "warp_rows": b * h * -(-w // 32), "busy_warp_rows": busy}
+
+
+def bound(nbytes: float, int_ops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input byte read once, each output byte written once) and does
+    ``int_ops`` integer lane-operations: the larger of the two times at the
+    H100's peaks, and which one it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = int_ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": int(nbytes), "int_ops": int(int_ops)}
+
+
+def fast_bound(frames: int, rows: int, width: int, mode: str, count: int, work: dict, *,
+               words: bool, in_bytes: Optional[int] = None) -> dict:
+    """Bound of one FAST kernel call (``csrc/fast.cu``) writing ``rows`` x
+    ``width`` pixels of each of ``frames`` buffers, whose input holds the
+    :func:`fast_work` ``work``.  ``in_bytes`` is the input tensor's size (a
+    tiles stack's slabs and pitch); by default the pixels themselves."""
+    px = frames * rows * width
+    out = frames * rows * -(-width // 32) * 4 if words else px * 4  # words, or 2 u16 planes
+    ops = (work["pixels"] * FAST_PREFILTER_OPS
+           + work["candidates"] * (FAST_ARC_OPS - FAST_CARDINAL_COMPARES))
+    if mode != "off":
+        ops += work["corners"] * (FAST_NONMAX_OPS + fast_score_ops(mode, count))
+    return bound((px if in_bytes is None else in_bytes) + out, ops)
+
+
+def brief_words_bound(frames: int, height: int, width: int) -> dict:
+    """``fdf_brief_words``: per pixel 256 pattern compares and 8 adds of the
+    separable 5x5 box sum; one byte in, 8 int32 words out."""
+    px = frames * height * width
+    return bound(px + px * 32, px * (256 + 8))
+
+
+def window_union_px(xy: np.ndarray, height: int, width: int, *, lo: int, size: Tuple[int, int],
+                    clamp: int) -> int:
+    """Pixels of the frames that at least one keypoint window covers:
+    ``xy`` (B, K, 2) is clamped to [clamp, dim - 1 - clamp], and each
+    window spans rows y - lo .. y - lo + size[0] - 1 and columns x - lo ..
+    x - lo + size[1] - 1, cut to the frame."""
+    xy = np.asarray(xy)
+    total = 0
+    for pts in xy:
+        x = np.clip(pts[:, 0], clamp, width - 1 - clamp) - lo
+        y = np.clip(pts[:, 1], clamp, height - 1 - clamp) - lo
+        diff = np.zeros((height + 1, width + 1), np.int32)
+        y0, y1 = np.clip(y, 0, height), np.clip(y + size[0], 0, height)
+        x0, x1 = np.clip(x, 0, width), np.clip(x + size[1], 0, width)
+        for a, b, v in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+            np.add.at(diff, (a, b), v)
+        total += int((diff.cumsum(0).cumsum(1)[:height, :width] > 0).sum())
+    return total
+
+
+def extract_windows_bound(xy: np.ndarray, height: int, width: int) -> dict:
+    """``fdf_extract_windows``: the 35 x 35 u8 blur halos of the keypoints
+    (each covered pixel read once), their (B, K, 2) int32 coordinates, and
+    (B, K, 31, 31) int32 out; per output 8 blur adds and a shift-or."""
+    n = int(np.prod(np.shape(xy)[:-1]))
+    read = window_union_px(xy, height, width, lo=17, size=(35, 35), clamp=17)
+    return bound(read + n * 8 + n * 31 * 31 * 4, n * 31 * 31 * 10)
+
+
+def extract_patches_bound(xy: np.ndarray, height: int, width: int) -> dict:
+    """``fdf_extract_patches``: the int32 plane cells the (32, 128) windows
+    cover, read once, the coordinates, and (B, K, 32, 128) int32 out; a
+    copy, no operations."""
+    n = int(np.prod(np.shape(xy)[:-1]))
+    read = window_union_px(xy, height, width, lo=15, size=(32, 128), clamp=15)
+    return bound(read * 4 + n * 8 + n * 32 * 128 * 4, 0)
+
+
+#: Integer operations per pixel of the OFF-floor stages (``csrc/exp_off.cu``):
+#: LOAD ``px & 1``; TRIPLE two XORs and the AND; PREFILTER the FAST
+#: kernels' cardinal prefilter.
+FLOOR_OPS = {"load": 1, "triple": 3, "prefilter": FAST_PREFILTER_OPS}
+
+
+def floor_bound(stage: str, frames: int, height: int, width: int) -> dict:
+    """An OFF-floor stage over a (B, H, W) u8 batch: the frames in, words out."""
+    px = frames * height * width
+    return bound(px + frames * height * -(-width // 32) * 4, px * FLOOR_OPS[stage])
+
+
+def words_prepacked_bound(plane_bytes: int, frames: int, height: int, width: int) -> dict:
+    """``fdf_fast_words_prepacked``: the prepacked int32 plane in, words out,
+    the OFF arc test on every pixel."""
+    return bound(plane_bytes + frames * height * -(-width // 32) * 4,
+                 frames * height * width * FAST_ARC_OPS)
+
+
+#: Integer operations per int32 element of the SWAR predicate sequences
+#: (``ops/exp_off.py``), the fewest the sequence needs, with 3-input logic
+#: as one operation and the tap step folded into per-tap constants.
+#: pred16, per tap and polarity: the biased add, the shift and the masked
+#: OR.  pred8, per tap: the tap step and the low 7 bits of p, then per
+#: polarity about 6 for the biased difference, the byte sign and the moved
+#: bit.  Then one XOR.
+SWAR_OPS = {"pred16": 16 * 2 * 3 + 1, "pred8": 16 * (2 + 2 * 6) + 1}
+
+
+def swar_pred_bound(name: str, elements: int) -> dict:
+    """A SWAR predicate kernel over three int32 planes of ``elements``
+    elements, one int32 plane out."""
+    return bound(elements * 16, elements * SWAR_OPS[name])
 
 
 def tiled(base: np.ndarray, h: int, w: int) -> np.ndarray:

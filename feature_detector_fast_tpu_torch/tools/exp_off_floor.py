@@ -17,9 +17,12 @@ per frame (median of ``repeats``):
                 tiles 128 rows apart
   prefilter     fdf_off_floor_prefilter (what ``pallas-win`` was meant to
                 measure): the 4-px halo staging and the cardinal prefilter
-  production    fdf_fast_words OFF, the kernel the floors bound
+  production    fdf_fast_words OFF
 
-and, last, each floor's share of ``production``.  The JAX tool's
+and, last, each floor's share of ``production``.  The floors keep the
+32 x 8 block skeleton ``fdf_fast_words`` had when they were written; the
+kernel now walks 128-column strips with a prefilter skip, so the shares no
+longer split its time into stages.  The JAX tool's
 ``trivial`` stage (production with a 2-op body, by monkeypatching JAX
 internals) has no further counterpart: ``prefilter`` beside ``production``
 is that comparison, and ``production - prefilter`` is the arc test.

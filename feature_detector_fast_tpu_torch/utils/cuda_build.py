@@ -44,11 +44,14 @@ def nvcc_path() -> str:
 def _library_path(source: str) -> str:
     with open(os.path.join(SRC_DIR, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_{digest}.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 
 def build_all(sources: Sequence[str]) -> List[str]:
-    """Compile each ``csrc/<source>`` whose cached library is missing, one
+    """Compile each ``csrc/<source>`` (or a source at an absolute path, such
+    as another revision of a kernel to time against) whose cached library is
+    missing, one
     ``nvcc`` per source, all started together; returns the libraries' paths.
 
     The compiler's output (including ``-Xptxas -v``) is kept beside each

@@ -52,6 +52,27 @@ def test_kernels_match_plain(device, mode):
             assert torch.equal(k_score.to(torch.int32), score.to(torch.int32))
 
 
+@pytest.mark.parametrize("shape", [(1, 7, 9), (3, 45, 157), (2, 37, 1931), (1, 70, 8200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernels_match_plain_ragged(device, shape):
+    """Both entry points == the plain version on widths 9, 157, 1931 and 8200
+    (off the 32- and 128-column grids), heights off the 32-row strip, and
+    3 frames of odd H * W, so frames 1 and 2 start at unaligned addresses;
+    3 modes x counts 9..=16."""
+    imgs = torch.from_numpy(
+        np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)).to(device)
+    for mode in NonmaxMode:
+        for count in range(9, 17):
+            mask, score = fast.detect_dense(imgs, 16, count, mode)
+            words = fast_cuda.detect_words(imgs, 16, count, mode)
+            k_mask, k_score = fast_cuda.detect_dense(imgs, 16, count, mode)
+            torch.cuda.synchronize()
+            what = (mode.value, count)
+            assert torch.equal(words, compact.pack_mask_words(mask)), what
+            assert torch.equal(k_mask.to(torch.int32), mask.to(torch.int32)), what
+            assert torch.equal(k_score.to(torch.int32), score.to(torch.int32)), what
+
+
 def test_main_path_golden(device):
     """detect on the reference frame through the words kernel: the pins of
     tests/test_golden.py."""
@@ -160,6 +181,32 @@ def test_tiles_kernels_match_plain(device, mode):
             assert torch.equal(words, compact.pack_mask_words(p_mask))
             assert torch.equal(k_mask.to(torch.int32), p_mask.to(torch.int32))
             assert torch.equal(k_score.to(torch.int32), p_score.to(torch.int32))
+
+
+@pytest.mark.parametrize("mode", list(NonmaxMode), ids=lambda m: m.value)
+def test_tiles_kernels_pitch_wider_than_frame(device, mode):
+    """The row-shard entry points on slabs whose pitch (163) exceeds the
+    frame width (157): == the plain version and == the whole-frame kernel's
+    rows, counts 9..=16."""
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.integers(0, 256, (75, 157), np.uint8))
+    rows, shards, halo = 40, 2, 4
+    wide = torch.nn.functional.pad(img, (0, 6, halo, halo + shards * rows - 75))
+    wide[:, 157:] = torch.from_numpy(rng.integers(0, 256, (wide.shape[0], 6), np.uint8))
+    ext = torch.stack([wide[s * rows:s * rows + rows + 2 * halo] for s in range(shards)]).to(device)
+    row0 = torch.arange(shards, dtype=torch.int32, device=device) * rows
+    kw = dict(height=75, width=157, halo=halo)
+    for count in range(9, 17):
+        p_mask, p_score = fast.detect_dense_tiles(ext, row0.tolist(), 16, count, mode, **kw)
+        words = fast_cuda.detect_words_tiles(ext, row0, 16, count, mode, **kw)
+        k_mask, k_score = fast_cuda.detect_dense_tiles(ext, row0, 16, count, mode, **kw)
+        w_mask, w_score = fast_cuda.detect_dense(img[None].to(device), 16, count, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(words, compact.pack_mask_words(p_mask)), count
+        assert torch.equal(k_mask.to(torch.int32), p_mask.to(torch.int32)), count
+        assert torch.equal(k_score.to(torch.int32), p_score.to(torch.int32)), count
+        assert torch.equal(k_mask.reshape(-1, 157)[:75], w_mask[0]), count
+        assert torch.equal(k_score.reshape(-1, 157)[:75], w_score[0]), count
 
 
 def test_spatial_list_matches_detect_arrays(device):

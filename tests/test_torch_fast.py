@@ -171,3 +171,100 @@ def test_word_packing_and_decode(rng, shape):
         yx = np.argwhere(mask[i])
         assert xy.dtype == np.uint32
         np.testing.assert_array_equal(xy, yx[:, ::-1])
+
+
+# -- what the CUDA kernel's arithmetic rests on (csrc/fast.cu) ---------------
+
+RINGS = np.arange(1 << 16, dtype=np.uint32)
+
+
+def has_run(masks: np.ndarray, count: int) -> np.ndarray:
+    """Does some wraparound window of ``count`` bits of each 16-bit ring
+    have all bits set?  Direct form: AND of the ring shifted 0..count-1."""
+    m32 = masks | (masks << 16)
+    r = m32.copy()
+    for k in range(1, count):
+        r &= m32 >> k
+    return (r & 0xFFFF) != 0
+
+
+def rotr(x: np.ndarray, k: int) -> np.ndarray:
+    k %= 32
+    return ((x >> k) | (x << (32 - k))) & 0xFFFFFFFF if k else x
+
+
+def interleave(bright: np.ndarray, dark: np.ndarray) -> np.ndarray:
+    """The kernel's ring register: tap i's bright bit at 2i + 1, dark at 2i."""
+    ring = np.zeros_like(bright)
+    for i in range(16):
+        ring |= ((bright >> i) & 1) << (2 * i + 1) | ((dark >> i) & 1) << (2 * i)
+    return ring
+
+
+def kernel_runs(ring: np.ndarray, count: int) -> np.ndarray:
+    """csrc/fast.cu ``runs``: AND-rotations by 1, 2, 4 taps, then two
+    overlapping windows of 8 at s and s + count - 8."""
+    r2 = ring & rotr(ring, 2)
+    r4 = r2 & rotr(r2, 4)
+    r8 = r4 & rotr(r4, 8)
+    return (r8 & rotr(r8, 2 * (count - 8))) != 0
+
+
+@pytest.mark.parametrize("count", range(9, 17))
+def test_cardinal_prefilter_is_necessary(count):
+    """Over all 2^16 rings: every ring with a wraparound run of ``count``
+    set bits has at least 2 (count <= 11) or 3 (count >= 12) of the cardinal
+    taps 0/4/8/12 set, so the kernel's prefilter never rejects a corner
+    (the need is ops/exp_off.need_for and fast_pallas.py:385's)."""
+    from feature_detector_fast_tpu_torch.ops import exp_off
+
+    need = exp_off.need_for(count)
+    assert need == (3 if count >= 12 else 2)
+    runs = has_run(RINGS, count)
+    cardinal = sum((RINGS >> i) & 1 for i in (0, 4, 8, 12))
+    assert runs.any() and (cardinal[runs] >= need).all()
+
+
+@pytest.mark.parametrize("count", range(9, 17))
+def test_interleaved_run_test_exhaustive(count):
+    """The kernel's one run test on the interleaved bright/dark register ==
+    the direct test of each polarity, over all 2^16 bright rings (with the
+    dark ring empty, and with the dark ring their complement shifted) and
+    all 2^16 dark rings."""
+    empty = np.zeros_like(RINGS)
+    other = ~np.left_shift(RINGS, 3) & 0xFFFF & ~RINGS  # disjoint from the bright ring
+    for bright, dark in ((RINGS, empty), (empty, RINGS), (RINGS, other)):
+        want = has_run(bright, count) | has_run(dark, count)
+        np.testing.assert_array_equal(kernel_runs(interleave(bright, dark), count), want)
+
+
+def kernel_max_threshold(image: np.ndarray, count: int) -> np.ndarray:
+    """csrc/fast.cu ``score_max_threshold`` restated in numpy: windows of 3
+    by 3-input min/max, of 9 as three windows of 3, of ``count`` as the two
+    windows of 9 at s and s + count - 9, then max/min over the 16 starts."""
+    from feature_detector_fast_tpu_torch.geometry import CIRCLE
+
+    h, w = image.shape[-2:]
+    pad = np.pad(image.astype(np.int32), [(0, 0)] * (image.ndim - 2) + [(3, 3), (3, 3)])
+    c = image.astype(np.int32)
+    d = [c - pad[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w] for dx, dy in CIRCLE]
+
+    def windows(v, op):
+        w3 = [op(op(v[i], v[(i + 1) % 16]), v[(i + 2) % 16]) for i in range(16)]
+        w9 = [op(op(w3[i], w3[(i + 3) % 16]), w3[(i + 6) % 16]) for i in range(16)]
+        return [op(w9[i], w9[(i + count - 9) % 16]) for i in range(16)]
+
+    eh = np.max(windows(d, np.minimum), axis=0)
+    el = np.min(windows(d, np.maximum), axis=0)
+    return np.minimum(np.abs(eh), np.abs(el))
+
+
+@pytest.mark.parametrize("count", range(9, 17))
+def test_kernel_max_threshold_score(count):
+    """The kernel's MaxThreshold score == ops/fast.score_max_threshold on a
+    seeded fuzz batch, at every pixel (not only corners); exact."""
+    rng = np.random.default_rng(100 + count)
+    frames = rng.integers(0, 256, (2, 40, 57), np.uint8)
+    frames[:, 5:20, 10:30] //= 4
+    want = fast.score_max_threshold(torch.from_numpy(frames), count).numpy()
+    np.testing.assert_array_equal(kernel_max_threshold(frames, count), want)

@@ -21,14 +21,15 @@ import torch
 import bench
 from feature_detector_fast_tpu_torch import api
 from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
-from feature_detector_fast_tpu_torch.ops import exp_off_cuda
+from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
+from feature_detector_fast_tpu_torch.ops import fast as fast_ops
 from feature_detector_fast_tpu_torch.tools import (
-    _common, acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, frontend_bench,
-    resolution_bench, scaling_bench, serving_bench, sweep)
+    _common, acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, fast_bench,
+    frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
 from feature_detector_fast_tpu_torch.utils.image import load_luma8, save_image
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
-TOOLS = ("acceptance", "exp_off_byteswar", "exp_off_floor", "exp_off_prepack",
+TOOLS = ("acceptance", "exp_off_byteswar", "exp_off_floor", "exp_off_prepack", "fast_bench",
          "frontend_bench", "resolution_bench", "scaling_bench", "serving_bench", "sweep")
 
 
@@ -244,3 +245,109 @@ def test_loop_ms_folds_every_round():
     acc = torch.zeros((), dtype=torch.int64)
     _common.fold(acc, fn())
     assert int(acc) == 4
+
+
+def test_fast_bench_records(crop):
+    """fast_bench on the CPU (the plain version standing in): words and
+    dense for each mode on each batch, then the tiles forms, each record
+    with its bound and the work it counts from the data; the corners are
+    the batch's OFF keypoints (its frames rolled apart)."""
+    recs = list(fast_bench.run(device="cpu", rounds=1, repeats=1, frame=crop, batches=(2,),
+                               shards=2))
+    assert [(r["kernel"], r["mode"], r["at"]) for r in recs] == [
+        (f"fdf_fast_{form}{tiles}", mode.value, at)
+        for tiles, at in (("", "batch 2"), ("_tiles", "2 shards"))
+        for mode in NonmaxMode for form in ("words", "dense")]
+    for r in recs:
+        assert r["ms"] > 0 and r["device"] == "cpu" and "baseline_ms" not in r
+        assert r["share_of_bound"] == r["bound_ms"] / r["ms"]
+    assert recs[0]["corners"] == sum(n_keypoints(f) for f in fast_bench.rolled(crop, 2))
+    assert recs[-1]["corners"] == n_keypoints(crop)
+    assert recs[-1]["pixels"] == (crop.shape[0] - 6) * (crop.shape[1] - 6)
+    assert recs[-1]["corners"] < recs[-1]["candidates"] < recs[-1]["pixels"]
+    assert recs[-1]["frames"] == 2 and recs[-1]["rows"] == 48
+    with pytest.raises(ValueError, match="needs the card"):
+        next(fast_bench.run(device="cpu", frame=crop, baseline="fast.cu"))
+
+
+# The work PERF.md states for the main path's (16, 1080, 1920) batch (the
+# golden frame rolled 16 ways, fast_bench.rolled) at t=16, n=9: detectable
+# pixels, those past the cardinal prefilter, arc-test corners.
+BATCH_1080P = (16, 1080, 1920)
+WORK_1080P = {"pixels": 16 * 1074 * 1914, "candidates": 2_748_056, "corners": 388_854}
+# The golden frame alone (the tiles forms' work over its 8 shards).
+WORK_FRAME = {"pixels": 1074 * 1914, "candidates": 171_974, "corners": 24_130}
+
+
+@pytest.mark.parametrize("mode,words,int_ops,nbytes,by", [
+    ("off", True, 669_055_232, 37_324_800, "operations"),
+    ("max_threshold", True, 711_051_464, 37_324_800, "operations"),
+    ("sum_absolute", True, 697_830_428, 37_324_800, "operations"),
+    ("off", False, 669_055_232, 165_888_000, "bytes"),
+    ("max_threshold", False, 711_051_464, 165_888_000, "bytes"),
+])
+def test_fast_bound_counts(mode, words, int_ops, nbytes, by):
+    """FAST: 17 ops at every detectable pixel for the cardinal prefilter,
+    40 more for the arc test where it passes, and at arc-test corners only
+    9 for the nonmax and 99 (MT, n=9) or 65 (SA) for the score; one byte
+    in, words or two u16 planes out."""
+    b = _common.fast_bound(*BATCH_1080P, mode, 9, WORK_1080P, words=words)
+    assert (b["int_ops"], b["bytes"], b["bound_by"]) == (int_ops, nbytes, by)
+    assert b["bound_ms"] == pytest.approx(max(int_ops / 16.72704e12, nbytes / 3.35e12) * 1e3)
+
+
+@pytest.mark.parametrize("count,ops", [(9, 99), (10, 131), (16, 131)])
+def test_fast_score_ops(count, ops):
+    """The MaxThreshold score's operations: windows of 9 from windows of 3,
+    two overlapping 9s beyond 9; SumAbsolute's do not depend on the count."""
+    assert _common.fast_score_ops("max_threshold", count) == ops
+    assert _common.fast_score_ops("sum_absolute", count) == 65
+    assert _common.fast_score_ops("off", count) == 0
+
+
+def test_fast_work_counts(crop):
+    """fast_work counts the detectable pixels, the prefilter's candidates
+    (a superset of the arc-test corners) and the corners, frame by frame."""
+    imgs = torch.from_numpy(fast_bench.rolled(crop, 2))
+    work = _common.fast_work(imgs, 16, 9)
+    h, w = crop.shape
+    assert work["pixels"] == 2 * (h - 6) * (w - 6)
+    assert work["corners"] == sum(n_keypoints(f) for f in imgs.numpy())
+    cand = exp_off.prefilter_mask(imgs, 16, 9)
+    assert work["candidates"] == int(cand.sum())
+    corners = fast_ops.detect_mask(imgs, 16, 9)
+    assert not bool((corners & ~cand).any()) and work["corners"] < work["candidates"]
+    assert work["warp_rows"] == 2 * h * -(-w // 32)
+    padded = torch.nn.functional.pad(cand, (0, -w % 32))
+    assert work["busy_warp_rows"] == int(padded.reshape(2, h, -1, 32).any(-1).sum())
+    assert work["candidates"] / 32 <= work["busy_warp_rows"] <= work["candidates"]
+
+
+def test_kernel_bound_counts():
+    """The other kernels' counts at the main path's shapes, as PERF.md
+    states them, and the bound as the larger of the two times."""
+    b = _common.brief_words_bound(*BATCH_1080P)
+    assert (b["int_ops"], b["bytes"], b["bound_by"]) == (8_758_886_400, 1_094_860_800,
+                                                          "operations")
+    assert b["bound_ms"] == pytest.approx(0.52363636, rel=1e-6)
+    tiles = _common.fast_bound(8, 136, 1920, "max_threshold", 9, WORK_FRAME, words=True,
+                               in_bytes=8 * 144 * 1920)
+    assert (tiles["int_ops"], tiles["bytes"]) == (44_430_812, 2_211_840 + 8 * 136 * 60 * 4)
+    assert _common.floor_bound("load", *BATCH_1080P)["bound_by"] == "bytes"
+    assert _common.floor_bound("prefilter", *BATCH_1080P)["int_ops"] == 17 * 16 * 1080 * 1920
+    assert _common.swar_pred_bound("pred16", 16384 * 128)["int_ops"] == 97 * 16384 * 128
+    assert _common.swar_pred_bound("pred8", 8192 * 128)["int_ops"] == 225 * 8192 * 128
+    assert _common.bound(3.35e9, 0) == {"bound_ms": 1.0, "bound_by": "bytes",
+                                        "bytes": 3_350_000_000, "int_ops": 0}
+
+
+def test_window_bounds_count_covered_pixels():
+    """Windows and patches read each covered pixel once: overlapping
+    keypoints share it, clamped ones stay in the frame."""
+    xy = np.array([[[100, 100], [100, 100], [101, 100], [0, 0]]], np.int32)
+    covered = _common.window_union_px(xy, 200, 300, lo=17, size=(35, 35), clamp=17)
+    assert covered == 35 * 36 + 35 * 35  # two coincide, one overlaps, (0, 0) clamps to (17, 17)
+    b = _common.extract_windows_bound(xy, 200, 300)
+    assert b["bytes"] == covered + 4 * 8 + 4 * 31 * 31 * 4 and b["bound_by"] == "bytes"
+    p = _common.extract_patches_bound(xy, 200, 300)
+    assert p["int_ops"] == 0 and p["bytes"] > 4 * 32 * 128 * 4
