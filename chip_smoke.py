@@ -29,17 +29,19 @@ launch counters zeroed just before it and read just after:
 
 It then times the FAST kernels' device time against their bounds
 (``tools.fast_bench``: words and dense at 1, 16 and 64 frames of 1080p,
-the row-shard forms on one frame in 8 shards), and kernels, plain versions,
-batch detection, the front-end, the patched-vs-dense describe crossover at
-(16, 1080, 1920), the row-shard kernels and multi-device paths against
+the row-shard forms on one frame in 8 shards), the descriptor kernels' and
+the patched-vs-dense describe crossover at (16, 1080, 1920)
+(``tools.descriptor_bench``), and kernels, plain versions, batch
+detection, the front-end, the row-shard kernels and multi-device paths against
 their single-device counterparts, and the experiment kernels.  Every
 kernel's row in the ``kernels`` line carries its bound (``tools._common``:
 bytes at 3.35 TB/s or integer operations at 16.7 T/s, from this run's
 shapes and data), its launches on its main path, and ``library_ms`` null
 with the reason no single PyTorch call computes the same function.  The
 build's ``-Xptxas -v`` log gives registers, shared memory and spills of
-every ``fast.cu`` instantiation; a spill, or an OFF instantiation above
-32 registers, fails the run.
+every kernel; a spill in ``fast.cu``, ``brief.cu`` or ``patch.cu``, or an
+OFF instantiation of ``fast.cu`` above 32 registers, fails the run.  The
+descriptor kernels are also held bit-exact on their tilings' edges.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -154,9 +156,9 @@ def ptxas_entries(build_log: str):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m[1]) + int(m[2])
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name is not None:
-            out.append((name, int(m[1]), int(m[2]), spill))
+            out.append((name, int(m[1]), int(m[2] or 0), spill))
             name = None
     return out
 
@@ -177,8 +179,8 @@ def main() -> int:
     from feature_detector_fast_tpu_torch.parallel import (
         frontend as dp, mesh as meshlib, pipeline, spatial)
     from feature_detector_fast_tpu_torch.tools import (
-        _common, acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, fast_bench,
-        frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
+        _common, acceptance, descriptor_bench, exp_off_byteswar, exp_off_floor, exp_off_prepack,
+        fast_bench, frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
     from feature_detector_fast_tpu_torch.tools._common import loop_ms, time_cuda, time_host
     from feature_detector_fast_tpu_torch.utils import cuda_build
     from feature_detector_fast_tpu_torch.utils.hashing import hash_image, hash_keypoints
@@ -203,10 +205,11 @@ def main() -> int:
     for source in SOURCES:
         if source == "fast.cu":
             continue
-        used = [line.strip() for line in cuda_build.build_log(source).splitlines()
-                if "Used" in line or "spill" in line]
-        for line in sorted(set(used)):
-            log(f"  ptxas {source}: {line}")
+        for name, regs, smem, spill in ptxas_entries(cuda_build.build_log(source)):
+            log(f"  ptxas {source} {name}: registers {regs}, smem {smem} B (static), "
+                f"spills {spill} B")
+            check(spill == 0 or source not in ("brief.cu", "patch.cu"),
+                  f"{source} {name} spills {spill} B")
     # fast.cu: one instantiation per count x mode x form x strip height;
     # registers, shared memory and spills per mode, form and height.
     fast_ptxas = {}
@@ -307,6 +310,32 @@ def main() -> int:
               f"patches err {e_p}")
         log(f"kernel vs plain: {name} {tuple(arr.shape)}: BRIEF words on every pixel, windows and "
             f"patches at 997 fuzzed slots per frame, bit-exact")
+
+    # The descriptor kernels' tilings: BRIEF's 64 x 32 blocks of 2-column
+    # lanes (widths 1-3 past 64 and 128, heights off 32, 3 frames of odd
+    # H * W so frames 1 and 2 start unaligned, 5 x 5 and 5 x 7 frames);
+    # the windows' 8 keypoints a block and 4-slot store phase (K = 1, K off
+    # 8, coordinates beyond every edge).
+    edge_inputs = [(1, 5, 5), (2, 5, 7), (3, 65, 129), (1, 67, 130), (3, 63, 131),
+                   (2, 128, 66), (3, 37, 1931), (1, 1081, 1923)]
+    for shape in edge_inputs:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        e_b = err(brief_cuda.describe_words(imgs), brief_cuda.describe_words_plain(imgs))
+        max_err["brief_words"] = max(max_err["brief_words"], e_b)
+        check(e_b == 0, f"BRIEF words != plain on {shape}: err {e_b}")
+        b, h, w = shape
+        if min(h, w) < 35:
+            continue
+        for k in (1, 7, 9, 1001):
+            xy = np.stack([rng.integers(-40, w + 40, (b, k)), rng.integers(-40, h + 40, (b, k))], -1)
+            xy[:, :min(k, 4)] = [[-5, -5], [w + 5, h + 5], [-5, h + 5], [w + 5, -5]][:min(k, 4)]
+            xy = torch.from_numpy(xy.astype(np.int32)).to(dev)
+            e_w = err(patch_cuda.extract_windows_fused(imgs, xy),
+                      patch_cuda.extract_windows_plain(imgs, xy))
+            max_err["extract_windows"] = max(max_err["extract_windows"], e_w)
+            check(e_w == 0, f"windows != plain on {shape}, K={k}: err {e_w}")
+    log(f"kernel vs plain: BRIEF words on {len(edge_inputs)} tiling-edge shapes {edge_inputs} "
+        f"and windows at K = 1, 7, 9, 1001 with coordinates beyond every edge, bit-exact")
 
     # -- 2c. the row-shard kernels against their plain version -------------
     max_err.update(words_tiles=0, dense_tiles=0)
@@ -456,7 +485,7 @@ def main() -> int:
     # -- 3b. the front-end main path, counted ------------------------------
     zero_counts()
     fe = {}
-    # k=16384 lies above brief._DENSE_K_MIN: the dense route.  Its 15
+    # k=16384 lies above brief._dense_k_min at 1080p: the dense route.  Its 15
     # distance matrices would take 16 GB, so it is not matched.
     for k, oriented in ((1000, False), (1000, True), (2048, False), (16384, False)):
         kps, desc, dvalid = brief.detect_and_describe_batch(batch, 16, 9, k, oriented)
@@ -481,7 +510,7 @@ def main() -> int:
         check(kps.xy.shape == (BATCH, k, 2) and desc.shape == (BATCH, k, brief.WORDS)
               and dvalid.shape == (BATCH, k) and desc.device.type == "cuda"
               and desc.dtype == torch.int32, f"front-end output shapes at k={k}")
-        route = "patched" if oriented or k <= brief._DENSE_K_MIN else "dense"
+        route = "patched" if oriented or k <= brief._dense_k_min(*batch.shape[-2:]) else "dense"
         log(f"front-end: detect_and_describe_batch {batch.shape} k={k} "
             f"{'oriented' if oriented else 'plain'} ({route} route): "
             f"{int(kps.valid.sum())} keypoints, {int(dvalid.sum())} described"
@@ -716,11 +745,22 @@ def main() -> int:
     blurred = brief.box_blur5(imgs)
     # Kernel times are device times (launches queued behind a device sleep);
     # plain times are CUDA-event times of the calls as a caller makes them.
+    # The descriptor kernels' device time against their bounds, and both
+    # describe routes by k at three frame sizes (tools.descriptor_bench): the
+    # crossover that sets brief._DENSE_K_MIN_1080P and how it scales.
+    db = list(descriptor_bench.run(device="cuda"))
+    dk = {(r["kernel"], r["at"]): r for r in db if "kernel" in r}
+    for (kname, at), r in dk.items():
+        log(f"timing {kname} {at}: {r['ms']:.5f} ms a call (device), bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']} ({r['int_ops']} int ops, {r['bytes']} B), "
+            f"{100 * r['share_of_bound']:.1f}% of the bound")
+    # descriptor_bench selects the same top 1000 of the same rolled batch.
+    windows_at = f"{BATCH} x 1000 keypoints, patched route"
     ft = {
-        "brief_words_ms": device_ms(lambda: brief_cuda.describe_words(imgs), rounds=5),
+        "brief_words_ms": dk[("fdf_brief_words", f"batch {BATCH}")]["ms"],
         "plain_brief_words_ms": time_cuda(lambda: brief_cuda.describe_words_plain(imgs),
                                           repeats=3, inner=1),
-        "extract_windows_ms": device_ms(lambda: patch_cuda.extract_windows_fused(imgs, kps.xy)),
+        "extract_windows_ms": dk[("fdf_extract_windows", windows_at)]["ms"],
         "plain_extract_windows_ms": time_cuda(
             lambda: patch_cuda.extract_windows_plain(imgs, kps.xy), repeats=5, inner=2),
         "extract_patches_ms": device_ms(lambda: patch_cuda.extract_patches(blurred, kps.xy)),
@@ -745,17 +785,14 @@ def main() -> int:
     log(f"timing front-end ({BATCH}, 1080, 1920), k=1000, ms per frame: "
         + ", ".join(f"{k[:-3]} {v / BATCH:.4f}" for k, v in ft.items()))
 
-    # The describe crossover that sets brief._DENSE_K_MIN.
-    mask, score = fast_cuda.detect_dense(imgs, 16, 9, NonmaxMode.SUM_ABSOLUTE)
-    crossover = {}
-    for k in (512, 1024, 1536, 4096, 8192, 16384):
-        kps_k = brief.select_topk(mask, score, k)
-        crossover[k] = {"patched_ms": time_cuda(lambda: brief.describe_patched(imgs, kps_k)),
-                        "dense_ms": time_cuda(lambda: brief.describe_dense(imgs, kps_k))}
-        log(f"timing describe crossover k={k}, ms per frame: patched "
-            f"{crossover[k]['patched_ms'] / BATCH:.4f}, dense {crossover[k]['dense_ms'] / BATCH:.4f}")
+    crossover = {f"{r['height']}x{r['width']} k={r['k']}": {
+        "patched_ms": r["patched_ms"], "dense_ms": r["dense_ms"], "dense_k_min": r["dense_k_min"]}
+        for r in db if r.get("stage") == "describe_crossover"}
+    for at, r in crossover.items():
+        log(f"timing describe crossover {at}, ms per frame: patched {r['patched_ms'] / BATCH:.4f}, "
+            f"dense {r['dense_ms'] / BATCH:.4f} (patched up to k={r['dense_k_min']})")
     log(json.dumps({"frontend_ms_per_batch": ft, "describe_crossover_ms_per_batch": crossover,
-                    "dense_k_min": brief._DENSE_K_MIN}))
+                    "dense_k_min_1080p": brief._DENSE_K_MIN_1080P}))
 
     # -- 4c. row-shard kernels and the multi-device paths, ms per frame ----
     rows8 = spatial.shard_rows(1080, 8)
@@ -906,10 +943,12 @@ def main() -> int:
     for kname, key, source, replaces, n, at, path in (
             ("fdf_brief_words", "brief_words", "brief.cu", "brief_pallas.py:47",
              fe_launches["fdf_brief_words"], f"one ({BATCH}, 1080, 1920) call, every pixel",
-             "1 per front-end batch on the dense route (k > 13000); none at k=1000"),
+             f"1 per front-end batch on the dense route (k > {brief._DENSE_K_MIN_1080P} at "
+             f"1080p, scaled by pixels); none at k=1000 on 1080p"),
             ("fdf_extract_windows", "extract_windows", "patch.cu", "patch_pallas.py:147",
              fe_launches["fdf_extract_windows"], fe_at,
-             "1 per front-end batch on the patched route (k <= 13000, every oriented call)"),
+             f"1 per front-end batch on the patched route (k <= {brief._DENSE_K_MIN_1080P} at "
+             f"1080p, every oriented call)"),
             ("fdf_extract_patches", "extract_patches", "patch.cu", "patch_pallas.py:69",
              patches_launches, fe_at + ", on the blurred frames", "none (tests only)")):
         rows.append({
@@ -928,6 +967,11 @@ def main() -> int:
             "ms_is": "device time (loop_ms, launches queued behind a device sleep)",
         })
     rows[3]["also_replaces"] = "feature_detector_fast_tpu/ops/patch_pallas.py:123"
+    for row, timed in ((rows[2], ("fdf_brief_words", "batch 1")),
+                       (rows[3], ("fdf_extract_windows", f"{BATCH} x 1000 keypoints, steered route"))):
+        row["ms_is"] = "device time (tools.descriptor_bench: loop_ms, launches queued behind a device sleep)"
+        row["also_timed"] = {"at": timed[1], "ms": dk[timed]["ms"], "bound_ms": dk[timed]["bound_ms"],
+                             "share_of_bound": dk[timed]["share_of_bound"]}
     rows[4]["launches_counted_in"] = "the kernel phase (no main path runs extract_patches)"
     for kname, key, line in (("fdf_fast_dense_tiles", "dense_tiles", 647),
                              ("fdf_fast_words_tiles", "words_tiles", 1029)):

@@ -122,13 +122,24 @@ def _make_rotated_patterns() -> np.ndarray:
 
 ROTATED_PATTERNS: np.ndarray = _make_rotated_patterns()
 
-#: Above this k, a CUDA batch is described by the dense kernel; at or below
-#: it (and for every oriented call) by the patch kernel.  The patched route
-#: costs ~1.8e-5 ms per keypoint per frame, the dense one a fixed ~0.24 ms
-#: per 1080p frame: on an H100 (700 W) at (16, 1080, 1920) they measured
-#: 0.152 vs 0.239 at k=8192 and 0.294 vs 0.238 at k=16384, ms per frame,
-#: crossing near k=13000 (PERF.md).
-_DENSE_K_MIN = 13000
+#: The describe routes' crossover on a 1080p frame, scaled to any frame by
+#: its pixels (:func:`_dense_k_min`).  The patched route costs ~1.5e-5 ms
+#: per keypoint per frame, the dense one ~0.077 ms per 1080p frame and grows
+#: with the pixels, so the crossover is a density.  On an NVIDIA H100 80GB
+#: HBM3 at 700 W, at (16, 1080, 1920), SumAbsolute t=16 n=9,
+#: tools/descriptor_bench.py measured 0.0712 vs 0.0777 at k=4096 and 0.1021
+#: vs 0.0761 at k=6144, ms per frame; the routes cross at k=4400-4530 in
+#: three runs.  At (16, 2160, 3840) they cross at k=17600-17800 (scaled:
+#: 18000); at (16, 480, 640) both cost 0.015-0.018 ms a frame from k=148
+#: to 607 and the dense one wins from k=910 (scaled: 666) (PERF.md).
+_DENSE_K_MIN_1080P = 4500
+
+
+def _dense_k_min(h: int, w: int) -> int:
+    """The most keypoints a frame of h x w pixels that a CUDA batch
+    describes by the patch kernel; above it the dense kernel runs."""
+    return _DENSE_K_MIN_1080P * h * w // (1080 * 1920)
+
 
 _PATCH = 2 * PATCH_R + 1  # rows/cols of a descriptor patch
 
@@ -409,8 +420,8 @@ def detect_and_describe_batch(
     ``device`` is "cuda" (the default; raises without CUDA) or "cpu".  On
     the CPU the sparse gathers run (:func:`describe`,
     :func:`describe_oriented`), as the JAX package runs them off the TPU.
-    On CUDA, oriented calls and k <= _DENSE_K_MIN take the patch kernel,
-    larger k the dense kernel.  Returns (Keypoints (B, K), desc (B, K,
+    On CUDA, oriented calls and k <= ``_dense_k_min(H, W)`` take the patch
+    kernel, larger k the dense kernel.  Returns (Keypoints (B, K), desc (B, K,
     WORDS) int32, desc_valid (B, K) bool)."""
     from ..api import _as_images
     from ..config import NonmaxMode
@@ -426,11 +437,12 @@ def describe_best(images: torch.Tensor, kps: Keypoints,
                   oriented: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """BRIEF-256 by the route for the frames' device: on the CPU the sparse
     gathers (:func:`describe`, :func:`describe_oriented`); on CUDA the
-    patch kernel for steered calls and K <= _DENSE_K_MIN, the dense kernel
-    above.  All routes agree at every valid slot."""
+    patch kernel for steered calls and K <= :func:`_dense_k_min` of the
+    frame size, the dense kernel above.  All routes agree at every valid
+    slot."""
     if images.device.type == "cpu":
         return (describe_oriented if oriented else describe)(images, kps)
-    if oriented or kps.xy.shape[-2] <= _DENSE_K_MIN:
+    if oriented or kps.xy.shape[-2] <= _dense_k_min(*images.shape[-2:]):
         return describe_patched(images, kps, oriented)
     return describe_dense(images, kps)
 

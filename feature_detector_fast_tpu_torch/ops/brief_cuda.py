@@ -12,6 +12,15 @@ on every pixel, so kernel and plain version agree everywhere; the JAX
 package's planes agree with them where it defines its own, at least BORDER
 from every edge.
 
+The kernel reads the pattern as a pair table built here
+(:func:`pair_table`): each endpoint's word offset in the block's blurred
+region, held as u16 cells paired two to a word in two copies (the second
+shifted one column), for the kernel's tiling (``TILE_W`` ... below, which
+``tests/test_torch_brief.py`` holds equal to ``brief.cu``'s).  The table is
+compiled into ``csrc/brief.cu`` (:func:`pair_macros` writes its ``BEGIN
+PAIRS`` block), so every offset is an immediate and the compiler loads a
+cell that several pairs read once.
+
 :func:`describe_words` takes a (B, H, W) u8 tensor.  On a CUDA tensor it
 checks it (device, dtype, rank, contiguity), allocates the planes with
 ``torch.empty``, launches on the current stream and raises if the launch
@@ -33,14 +42,52 @@ from ..models.brief import PATCH_R, PATTERN, WORDS, box_blur5
 LAUNCHES = {"brief_words": 0}
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (on first use) and bind ``csrc/brief.cu``."""
-    from ..utils import cuda_build
+#: The kernel's tiling (``csrc/brief.cu``), which the pair table is built
+#: for: a block covers TILE_W x TILE_H pixels, a lane two adjacent columns
+#: of ROWS rows, and each row of the blurred region (TILE_W + 2 * PATCH_R
+#: u16 cells) is held twice in ROW_WORDS 32-bit words (odd: no bank conflict
+#: down a column): copy 0 pairs cells (2k, 2k+1) from word 0, copy 1 pairs
+#: (2k+1, 2k+2) from word COPY_WORDS.
+TILE_W, TILE_H, ROWS = 64, 32, 4
+COPY_WORDS = 48
+ROW_WORDS = 2 * COPY_WORDS + 1
 
-    lib = cuda_build.load("brief.cu")
-    lib.fdf_brief_set_pattern.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.fdf_brief_set_pattern.restype = ctypes.c_int
+
+def pair_table() -> np.ndarray:
+    """(BITS, 2) int32: the word offsets of both endpoints of each PATTERN
+    pair in the blurred region, relative to the word a lane reads for its
+    own pixel pair (x, x+1), x even: the cells (x + dx, x + 1 + dx) of row
+    y + dy sit in copy 0 where dx + PATCH_R is even, else in copy 1."""
+    c = PATTERN[..., 0] + PATCH_R
+    off = (PATTERN[..., 1] + PATCH_R) * ROW_WORDS + (c & 1) * COPY_WORDS + (c >> 1)
+    return np.ascontiguousarray(off, dtype=np.int32)
+
+
+def pair_order(j: int) -> list:
+    """The order in which ``brief.cu`` takes plane j's 32 pairs: by the
+    column of the leftmost endpoint, then the first endpoint's row, so that
+    pairs which read the same cells run close together."""
+    pats = PATTERN[32 * j: 32 * j + 32]
+    return sorted(range(32), key=lambda b: (int(min(pats[b, 0, 0], pats[b, 1, 0])),
+                                            int(pats[b, 0, 1]), b))
+
+
+def pair_macros() -> str:
+    """The block between ``// BEGIN PAIRS`` and ``// END PAIRS`` of
+    ``csrc/brief.cu``: one ``FDF_PAIRS_<j>(X)`` macro a plane, listing
+    ``X(bit, offset 1, offset 2)`` of :func:`pair_table` in
+    :func:`pair_order`."""
+    table = pair_table()
+    lines = []
+    for j in range(WORDS):
+        items = [f"X({b}, {table[32 * j + b, 0]}, {table[32 * j + b, 1]})" for b in pair_order(j)]
+        lines.append(f"#define FDF_PAIRS_{j}(X) \\\n  " + " \\\n  ".join(
+            " ".join(items[i:i + 4]) for i in range(0, 32, 4)))
+    return "\n".join(lines) + "\n"
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ``brief.cu``'s entry points."""
     lib.fdf_brief_words.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                     + [ctypes.c_void_p])  # B, H, W, device, stream
     lib.fdf_brief_words.restype = ctypes.c_int
@@ -49,18 +96,27 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (on first use) and bind ``csrc/brief.cu``."""
+    from ..utils import cuda_build
+
+    return bind(cuda_build.load("brief.cu"))
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
-        msg = load_library().fdf_error_string(err).decode()
+        msg = lib.fdf_error_string(err).decode()
         raise RuntimeError(f"{what} failed: {msg} (cudaError {err})")
 
 
-@functools.lru_cache(maxsize=None)
-def _upload_pattern(device_index: int) -> None:
-    """Copy PATTERN into the kernel's constant memory on one device, once."""
-    pattern = np.ascontiguousarray(PATTERN, dtype=np.int32)
-    _raise_on(load_library().fdf_brief_set_pattern(pattern.ctypes.data, device_index),
-              "copying the BRIEF pattern to the device")
+def run(lib: ctypes.CDLL, images: torch.Tensor, planes: torch.Tensor) -> None:
+    """Launch ``lib``'s ``fdf_brief_words`` on checked tensors (the one
+    place that knows its C argument order); raises on a launch error."""
+    b, h, w = images.shape
+    _raise_on(lib, lib.fdf_brief_words(
+        images.data_ptr(), planes.data_ptr(), b, h, w, images.device.index,
+        torch.cuda.current_stream(images.device).cuda_stream), "BRIEF kernel launch")
 
 
 def _check(images: torch.Tensor) -> None:
@@ -108,11 +164,7 @@ def describe_words(images: torch.Tensor) -> torch.Tensor:
     b, h, w = images.shape
     planes = torch.empty((b, WORDS, h, w), dtype=torch.int32, device=images.device)
     if images.numel():
-        lib = load_library()
-        _upload_pattern(images.device.index)
-        _raise_on(lib.fdf_brief_words(
-            images.data_ptr(), planes.data_ptr(), b, h, w, images.device.index,
-            torch.cuda.current_stream(images.device).cuda_stream), "BRIEF kernel launch")
+        run(load_library(), images, planes)
         LAUNCHES["brief_words"] += 1
     return planes
 

@@ -42,12 +42,8 @@ _MARGIN = PATCH_R + 2
 LAUNCHES = {"extract_windows": 0, "extract_patches": 0}
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (on first use) and bind ``csrc/patch.cu``."""
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("patch.cu")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ``patch.cu``'s entry points."""
     args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]  # B, H, W, K, device
     for fn in (lib.fdf_extract_windows, lib.fdf_extract_patches):
         fn.argtypes = args
@@ -55,6 +51,14 @@ def load_library() -> ctypes.CDLL:
     lib.fdf_error_string.argtypes = [ctypes.c_int]
     lib.fdf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (on first use) and bind ``csrc/patch.cu``."""
+    from ..utils import cuda_build
+
+    return bind(cuda_build.load("patch.cu"))
 
 
 def _check(frames: torch.Tensor, xy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

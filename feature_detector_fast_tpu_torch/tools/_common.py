@@ -237,11 +237,18 @@ def fast_bound(frames: int, rows: int, width: int, mode: str, count: int, work: 
     return bound((px if in_bytes is None else in_bytes) + out, ops)
 
 
+#: Integer lane-operations a pixel of ``fdf_brief_words`` must issue: 256
+#: pattern compares and the 8 adds of the separable 5x5 box sum, all on
+#: u16 values (a sum is at most 6375), two of which one 32-bit lane-operation
+#: handles (the kernel compares two pixels with one add).
+BRIEF_OPS_PER_PX = (256 + 8) // 2
+
+
 def brief_words_bound(frames: int, height: int, width: int) -> dict:
-    """``fdf_brief_words``: per pixel 256 pattern compares and 8 adds of the
-    separable 5x5 box sum; one byte in, 8 int32 words out."""
+    """``fdf_brief_words``: :data:`BRIEF_OPS_PER_PX` a pixel; one byte in,
+    8 int32 words out."""
     px = frames * height * width
-    return bound(px + px * 32, px * (256 + 8))
+    return bound(px + px * 32, px * BRIEF_OPS_PER_PX)
 
 
 def window_union_px(xy: np.ndarray, height: int, width: int, *, lo: int, size: Tuple[int, int],

@@ -275,6 +275,14 @@ def test_describe_dense_matches_jax(rng, shape):
     np.testing.assert_array_equal(u32(got[0]), u32(want))
 
 
+def test_dense_route_threshold_scales_with_pixels():
+    """The describe route switches at a keypoint density: 4500 keypoints
+    on a 1080p frame, 4x that at 4K, the same share of a VGA frame or of
+    the 200 x 300 reference frame."""
+    assert [brief._dense_k_min(h, w) for h, w in
+            ((1080, 1920), (2160, 3840), (480, 640), (200, 300))] == [4500, 18000, 666, 130]
+
+
 def test_describe_words_wrapper_checks():
     """A CPU tensor takes the plain version and never counts a launch; bad
     arguments are refused."""
@@ -288,3 +296,111 @@ def test_describe_words_wrapper_checks():
         brief_cuda.describe_words(frames[0])
     with pytest.raises(ValueError):
         brief_cuda.describe_words(torch.zeros((1, 4, 40), dtype=torch.uint8))
+
+
+def emulate_brief_kernel(frames: torch.Tensor) -> torch.Tensor:
+    """``csrc/brief.cu``'s arithmetic in torch, block by block: each block's
+    blurred region as two copies of u16 cells paired two to a 32-bit word,
+    read at ``brief_cuda.pair_table()``'s word offsets from each lane's own
+    word; both pixels of a word compared by one add (bits 15 and 31 of
+    ``b - a + 0x7FFF7FFF``), the bits gathered into two accumulators and
+    split by the kernel's byte permutes.  (B, WORDS, H, W) int32."""
+    bc = brief_cuda
+    n, h, w = frames.shape
+    r = brief.PATCH_R
+    blur = brief.box_blur5(frames).to(torch.int64)
+    table = torch.from_numpy(bc.pair_table().astype(np.int64))  # (BITS, 2)
+    rows_b, cols_b = bc.TILE_H + 2 * r, bc.TILE_W + 2 * r
+    lane = torch.arange(32)
+    lr = torch.arange(bc.TILE_H)
+    base = (lr[:, None] * bc.ROW_WORDS + lane[None, :]).reshape(-1)  # (64 rows x 32 lanes)
+    out = torch.zeros((n, brief.WORDS, h, w), dtype=torch.int64)
+    for y0 in range(0, h, bc.TILE_H):
+        for x0 in range(0, w, bc.TILE_W):
+            ys = torch.arange(y0 - r, y0 - r + rows_b).clamp(0, h - 1)
+            xs = torch.arange(x0 - r, x0 - r + cols_b).clamp(0, w - 1)
+            cells = blur[:, ys][:, :, xs]  # (n, 94, 94): the clamp extends the blur
+            pad = torch.zeros((n, rows_b, 2 * bc.COPY_WORDS + 2), dtype=torch.int64)
+            pad[:, :, :cols_b] = cells
+            copy0 = pad[:, :, 0:2 * bc.COPY_WORDS:2] | (pad[:, :, 1:2 * bc.COPY_WORDS:2] << 16)
+            copy1 = pad[:, :, 1:2 * bc.COPY_WORDS + 1:2] | (pad[:, :, 2:2 * bc.COPY_WORDS + 2:2] << 16)
+            spare = torch.zeros((n, rows_b, bc.ROW_WORDS - 2 * bc.COPY_WORDS), dtype=torch.int64)
+            region = torch.cat([copy0, copy1, spare], -1).reshape(n, -1)  # (n, 94 * ROW_WORDS)
+            a = region[:, base[:, None] + table[None, :, 0]]  # (n, 2048, BITS)
+            b = region[:, base[:, None] + table[None, :, 1]]
+            d = (b - a + 0x7FFF7FFF) & 0xFFFFFFFF
+            g = torch.arange(brief.BITS) % 16
+            bits = (d >> (15 - g)) & (0x00010001 << g)
+            acc = bits.reshape(n, -1, brief.WORDS, 2, 16).sum(-1)  # disjoint bits: sum = OR
+            lo, hi = acc[..., 0], acc[..., 1]
+            w0 = (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)  # __byte_perm(lo, hi, 0x5410)
+            w1 = (lo >> 16) | (hi & 0xFFFF0000)         # __byte_perm(lo, hi, 0x7632)
+            words = torch.stack([w0, w1], -1).reshape(n, bc.TILE_H, 32, brief.WORDS, 2)
+            words = words.permute(0, 3, 1, 2, 4).reshape(n, brief.WORDS, bc.TILE_H, bc.TILE_W)
+            hh, ww = min(bc.TILE_H, h - y0), min(bc.TILE_W, w - x0)
+            out[:, :, y0:y0 + hh, x0:x0 + ww] = words[:, :, :hh, :ww]
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7), (1, 70, 131), (2, 23, 41)])
+def test_pair_table_emulation_matches_plain(rng, shape):
+    """The kernel's lookup of the pair table and its packed compares,
+    emulated in torch, give describe_words_plain on every pixel: frames
+    smaller than a block, and one past two blocks wide and a block tall."""
+    frames = torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+    assert torch.equal(emulate_brief_kernel(frames), brief_cuda.describe_words_plain(frames))
+
+
+def test_pair_table_layout():
+    """Every endpoint lies in the blurred region a lane can reach, in the
+    copy whose word pairs its two cells: offsets in [0, most], copy 1
+    exactly for odd dx + 15."""
+    t = brief_cuda.pair_table()
+    assert t.shape == (brief.BITS, 2) and t.dtype == np.int32
+    most = 2 * brief.PATCH_R * brief_cuda.ROW_WORDS + brief_cuda.COPY_WORDS + brief.PATCH_R
+    assert t.min() >= 0 and t.max() <= most
+    col = t % brief_cuda.ROW_WORDS
+    dx = brief.PATTERN[..., 0] + brief.PATCH_R
+    np.testing.assert_array_equal(col >= brief_cuda.COPY_WORDS, dx % 2 == 1)
+    np.testing.assert_array_equal(col % brief_cuda.COPY_WORDS, dx // 2)
+    np.testing.assert_array_equal(t // brief_cuda.ROW_WORDS, brief.PATTERN[..., 1] + brief.PATCH_R)
+
+
+def test_pair_macros_compiled_into_kernel():
+    """csrc/brief.cu compiles in the pair table: its tiling constants are
+    the ones pair_table() is built for, its BEGIN PAIRS block is
+    pair_macros() as generated from PATTERN, and each plane's macro lists
+    its 32 pairs once, with pair_table()'s offsets."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(brief_cuda.__file__), os.pardir, "csrc", "brief.cu")
+    src = open(path).read()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        consts[name] = eval(expr, {"__builtins__": {}}, dict(consts))
+    assert {name: consts[name] for name in ("TILE_W", "TILE_H", "ROWS", "COPY_WORDS",
+                                            "ROW_WORDS", "REACH")} == {
+        "TILE_W": brief_cuda.TILE_W, "TILE_H": brief_cuda.TILE_H, "ROWS": brief_cuda.ROWS,
+        "COPY_WORDS": brief_cuda.COPY_WORDS, "ROW_WORDS": brief_cuda.ROW_WORDS,
+        "REACH": brief.PATCH_R}
+    block = src[src.index("// BEGIN PAIRS\n") + len("// BEGIN PAIRS\n"):src.index("// END PAIRS")]
+    assert block == brief_cuda.pair_macros()
+    table = brief_cuda.pair_table()
+    for j, body in enumerate(re.split(r"#define FDF_PAIRS_\d\(X\)", block)[1:]):
+        got = sorted((int(b), int(o1), int(o2))
+                     for b, o1, o2 in re.findall(r"X\((\d+), (\d+), (\d+)\)", body))
+        assert got == [(b, *table[32 * j + b]) for b in range(32)]
+
+
+def test_distinct_cells_a_lane_loads():
+    """The shared loads brief.cu's compiled-in table needs: a lane reads,
+    for each plane, each distinct word (an endpoint's offset + r rows) of
+    its ROWS rows once -- 1709 of the 2048 endpoint samples of 4 rows, 214
+    a pixel (it computes 2 x 4), against 256 with a run-time table."""
+    table = brief_cuda.pair_table().astype(np.int64)
+    rows = np.arange(brief_cuda.ROWS) * brief_cuda.ROW_WORDS
+    loads = sum(len(np.unique(table[32 * j:32 * j + 32].reshape(-1)[:, None] + rows))
+                for j in range(brief.WORDS))
+    assert brief_cuda.ROWS == 4 and loads == 1709
+    assert loads / (2 * brief_cuda.ROWS) == pytest.approx(213.6, abs=0.05)

@@ -92,49 +92,73 @@ def test_rejects_non_contiguous(device):
         fast_cuda.detect_words(imgs, 16, 9, NonmaxMode.OFF)
 
 
-def test_brief_words_matches_plain(device):
+@pytest.mark.parametrize("shape", [
+    (2, 61, 157), (2, 256, 320), (1, 5, 7), (1, 5, 5), (3, 40, 33),
+    # widths 1-3 past a lane's 2 columns and the 64-column block, heights
+    # off the 32-row block, 3 frames of odd H * W (unaligned frame bases)
+    (3, 65, 129), (1, 67, 130), (3, 63, 131), (2, 128, 66), (3, 37, 1931)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_brief_words_matches_plain(device, shape):
     """The dense BRIEF kernel == its plain version on every pixel, border
     included, and counts one launch per call."""
+    rng = np.random.default_rng(sum(shape))
+    imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
+    before = brief_cuda.LAUNCHES["brief_words"]
+    got = brief_cuda.describe_words(imgs)
+    torch.cuda.synchronize()
+    assert brief_cuda.LAUNCHES["brief_words"] == before + 1
+    assert torch.equal(got, brief_cuda.describe_words_plain(imgs)), shape
+
+
+def test_brief_words_large_frame(device):
+    """A frame of 1024 x 300000 pixels, so plane 7 starts more than 2^31
+    int32s past plane 0: its last 64 rows == the plain version's on the
+    frame's last 100 rows (all the rows they read, bottom clamp included)."""
+    h, w = 1024, 300_000
     rng = np.random.default_rng(11)
-    for shape in [(2, 61, 157), (2, 256, 320), (1, 5, 7), (3, 40, 33)]:
-        imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
-        before = brief_cuda.LAUNCHES["brief_words"]
-        got = brief_cuda.describe_words(imgs)
-        torch.cuda.synchronize()
-        assert brief_cuda.LAUNCHES["brief_words"] == before + 1
-        assert torch.equal(got, brief_cuda.describe_words_plain(imgs)), shape
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, h, w), np.uint8)).to(device)
+    got = brief_cuda.describe_words(imgs)[..., -64:, :]
+    assert torch.equal(got, brief_cuda.describe_words_plain(imgs[:, -100:])[..., -64:, :])
 
 
-def test_patch_kernels_match_plain(device):
+@pytest.mark.parametrize("b,h,w,k", [
+    (2, 61, 157, 37), (2, 256, 320, 37), (1, 35, 35, 37),
+    # K = 1, K off the 8 keypoints of a block, odd H * W frames
+    (2, 61, 157, 1), (3, 45, 157, 9), (3, 67, 131, 1001)],
+    ids=lambda v: str(v))
+def test_patch_kernels_match_plain(device, b, h, w, k):
     """Both patch kernels == their plain versions for coordinates anywhere
-    (in range, on the border, beyond it) and K not a multiple of anything."""
-    rng = np.random.default_rng(12)
-    for b, h, w in [(2, 61, 157), (2, 256, 320), (1, 35, 35)]:
-        imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w), np.uint8)).to(device)
-        planes = torch.from_numpy(rng.integers(-2**31, 2**31, (b, h, w)).astype(np.int32)).to(device)
-        xy = np.stack([rng.integers(-20, w + 20, (b, 37)), rng.integers(-20, h + 20, (b, 37))], -1)
-        xy = torch.from_numpy(xy.astype(np.int32)).to(device)
-        before = dict(patch_cuda.LAUNCHES)
-        wins = patch_cuda.extract_windows_fused(imgs, xy)
-        patches = patch_cuda.extract_patches(planes, xy)
-        torch.cuda.synchronize()
-        assert patch_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
-        assert torch.equal(wins, patch_cuda.extract_windows_plain(imgs, xy))
-        assert torch.equal(patches, patch_cuda.extract_patches_plain(planes, xy))
+    (in range, on the border, beyond every edge) and K not a multiple of
+    anything; one launch each per call."""
+    rng = np.random.default_rng(b * h * w + k)
+    imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w), np.uint8)).to(device)
+    planes = torch.from_numpy(rng.integers(-2**31, 2**31, (b, h, w)).astype(np.int32)).to(device)
+    xy = np.stack([rng.integers(-40, w + 40, (b, k)), rng.integers(-40, h + 40, (b, k))], -1)
+    corners = [[-5, -5], [w + 5, h + 5], [-5, h + 5], [w + 5, -5]]
+    xy[:, :min(k, 4)] = corners[:min(k, 4)]
+    xy = torch.from_numpy(xy.astype(np.int32)).to(device)
+    before = dict(patch_cuda.LAUNCHES)
+    wins = patch_cuda.extract_windows_fused(imgs, xy)
+    patches = patch_cuda.extract_patches(planes, xy)
+    torch.cuda.synchronize()
+    assert patch_cuda.LAUNCHES == {key: v + 1 for key, v in before.items()}
+    assert torch.equal(wins, patch_cuda.extract_windows_plain(imgs, xy))
+    assert torch.equal(patches, patch_cuda.extract_patches_plain(planes, xy))
 
 
 @pytest.mark.parametrize("oriented", [False, True], ids=["plain", "oriented"])
 @pytest.mark.parametrize("k", [128, 16384])
 def test_frontend_cuda_matches_cpu(device, k, oriented):
     """detect_and_describe on the card (patched route for k=128 and every
-    oriented call, dense route for k=16384 > brief._DENSE_K_MIN) == the CPU
-    path: keypoints and validity exactly, descriptors at valid slots."""
+    oriented call, dense route for k=16384 > brief._dense_k_min(200, 300) =
+    130) == the CPU path: keypoints and validity exactly, descriptors at
+    valid slots."""
     ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
     before = (fast_cuda.LAUNCHES["dense"], brief_cuda.LAUNCHES["brief_words"],
               patch_cuda.LAUNCHES["extract_windows"])
     kps, desc, dvalid = brief.detect_and_describe(ref, 16, 9, k, oriented, device=device)
     torch.cuda.synchronize()
-    dense = not oriented and k > brief._DENSE_K_MIN
+    dense = not oriented and k > brief._dense_k_min(*ref.shape)
     assert (fast_cuda.LAUNCHES["dense"], brief_cuda.LAUNCHES["brief_words"],
             patch_cuda.LAUNCHES["extract_windows"]) == (
         before[0] + 1, before[1] + dense, before[2] + (not dense))

@@ -24,13 +24,14 @@ from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
 from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
 from feature_detector_fast_tpu_torch.ops import fast as fast_ops
 from feature_detector_fast_tpu_torch.tools import (
-    _common, acceptance, exp_off_byteswar, exp_off_floor, exp_off_prepack, fast_bench,
-    frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
+    _common, acceptance, descriptor_bench, exp_off_byteswar, exp_off_floor, exp_off_prepack,
+    fast_bench, frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
 from feature_detector_fast_tpu_torch.utils.image import load_luma8, save_image
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
-TOOLS = ("acceptance", "exp_off_byteswar", "exp_off_floor", "exp_off_prepack", "fast_bench",
-         "frontend_bench", "resolution_bench", "scaling_bench", "serving_bench", "sweep")
+TOOLS = ("acceptance", "descriptor_bench", "exp_off_byteswar", "exp_off_floor",
+         "exp_off_prepack", "fast_bench", "frontend_bench", "resolution_bench", "scaling_bench",
+         "serving_bench", "sweep")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -270,6 +271,40 @@ def test_fast_bench_records(crop):
         next(fast_bench.run(device="cpu", frame=crop, baseline="fast.cu"))
 
 
+def test_descriptor_bench_records(crop):
+    """descriptor_bench on the CPU (the plain versions standing in): BRIEF
+    words per batch and windows per route, each with its bound and share,
+    then the describe crossover by k; --baseline needs the card."""
+    from feature_detector_fast_tpu_torch.models import brief
+    from feature_detector_fast_tpu_torch.ops import brief_cuda, patch_cuda
+
+    before = (dict(brief_cuda.LAUNCHES), dict(patch_cuda.LAUNCHES))
+    h, w = crop.shape
+    recs = list(descriptor_bench.run(device="cpu", rounds=1, repeats=1, frame=crop,
+                                     batches=(1, 2), k=40, batch_k=2, ks=(20, 60),
+                                     sizes=((h, w), (h // 2, 2 * w))))
+    assert [(r.get("kernel"), r.get("at")) for r in recs[:4]] == [
+        ("fdf_brief_words", "batch 1"), ("fdf_brief_words", "batch 2"),
+        ("fdf_extract_windows", "2 x 40 keypoints, patched route"),
+        ("fdf_extract_windows", "2 x 40 keypoints, steered route")]
+    for r in recs[:4]:
+        assert r["ms"] > 0 and r["device"] == "cpu" and "baseline_ms" not in r
+        assert r["share_of_bound"] == r["bound_ms"] / r["ms"]
+    assert recs[1]["bytes"] == 2 * h * w * 33 and recs[1]["bound_by"] == "bytes"
+    assert recs[2]["int_ops"] == 2 * 40 * 31 * 31 * 10
+    # the crossover's k scale with the pixels of each size
+    assert [(r["stage"], r["height"], r["width"], r["k"]) for r in recs[4:]] == [
+        ("describe_crossover", h, w, 20), ("describe_crossover", h, w, 60),
+        ("describe_crossover", h // 2, 2 * w, round(20 * (h // 2) * 2 / h)),
+        ("describe_crossover", h // 2, 2 * w, round(60 * (h // 2) * 2 / h))]
+    assert all(r["patched_ms"] > 0 and r["dense_ms"] > 0 for r in recs[4:])
+    assert [r["dense_k_min"] for r in recs[4::2]] == [brief._dense_k_min(h, w),
+                                                      brief._dense_k_min(h // 2, 2 * w)]
+    assert (dict(brief_cuda.LAUNCHES), dict(patch_cuda.LAUNCHES)) == before
+    with pytest.raises(ValueError, match="needs the card"):
+        next(descriptor_bench.run(device="cpu", frame=crop, baseline="_parent"))
+
+
 # The work PERF.md states for the main path's (16, 1080, 1920) batch (the
 # golden frame rolled 16 ways, fast_bench.rolled) at t=16, n=9: detectable
 # pixels, those past the cardinal prefilter, arc-test corners.
@@ -326,10 +361,11 @@ def test_fast_work_counts(crop):
 def test_kernel_bound_counts():
     """The other kernels' counts at the main path's shapes, as PERF.md
     states them, and the bound as the larger of the two times."""
+    # BRIEF: 264 u16 operations a pixel at two a lane-operation (the kernel
+    # compares two pixels with one 32-bit add), so the planes' bytes bound it.
     b = _common.brief_words_bound(*BATCH_1080P)
-    assert (b["int_ops"], b["bytes"], b["bound_by"]) == (8_758_886_400, 1_094_860_800,
-                                                          "operations")
-    assert b["bound_ms"] == pytest.approx(0.52363636, rel=1e-6)
+    assert (b["int_ops"], b["bytes"], b["bound_by"]) == (4_379_443_200, 1_094_860_800, "bytes")
+    assert b["bound_ms"] == pytest.approx(0.32682412, rel=1e-6)
     tiles = _common.fast_bound(8, 136, 1920, "max_threshold", 9, WORK_FRAME, words=True,
                                in_bytes=8 * 144 * 1920)
     assert (tiles["int_ops"], tiles["bytes"]) == (44_430_812, 2_211_840 + 8 * 136 * 60 * 4)
