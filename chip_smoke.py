@@ -39,9 +39,11 @@ bytes at 3.35 TB/s or integer operations at 16.7 T/s, from this run's
 shapes and data), its launches on its main path, and ``library_ms`` null
 with the reason no single PyTorch call computes the same function.  The
 build's ``-Xptxas -v`` log gives registers, shared memory and spills of
-every kernel; a spill in ``fast.cu``, ``brief.cu`` or ``patch.cu``, or an
-OFF instantiation of ``fast.cu`` above 32 registers, fails the run.  The
-descriptor kernels are also held bit-exact on their tilings' edges.
+every kernel; a spill in any source, or an OFF instantiation of
+``fast.cu`` above 32 registers, fails the run.  The descriptor kernels are
+also held bit-exact on their tilings' edges, and the OFF-floor strip
+kernels on 8- and 32-row strips, frames narrower and lower than a strip,
+and planes that need element loads.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -208,8 +210,7 @@ def main() -> int:
         for name, regs, smem, spill in ptxas_entries(cuda_build.build_log(source)):
             log(f"  ptxas {source} {name}: registers {regs}, smem {smem} B (static), "
                 f"spills {spill} B")
-            check(spill == 0 or source not in ("brief.cu", "patch.cu"),
-                  f"{source} {name} spills {spill} B")
+            check(spill == 0, f"{source} {name} spills {spill} B")
     # fast.cu: one instantiation per count x mode x form x strip height;
     # registers, shared memory and spills per mode, form and height.
     fast_ptxas = {}
@@ -378,28 +379,54 @@ def main() -> int:
 
     # -- 2d. the experiment kernels against their plain versions ----------
     max_err.update({key: 0 for key in exp_off_cuda.LAUNCHES})
-    exp_inputs = {f"batch_{BATCH}x1080x1920": batch,
-                  "rand_2x1037x1931": rng.integers(0, 256, (2, 1037, 1931), np.uint8)}
-    for name, arr in exp_inputs.items():
-        imgs = torch.from_numpy(arr).to(dev)
-        _, h, w = arr.shape
-        for stage, args in ((exp_off.LOAD, ()), (exp_off.TRIPLE, (128,)), (exp_off.TRIPLE, (8,)),
-                            (exp_off.PREFILTER, (16, 9)), (exp_off.PREFILTER, (16, 12))):
-            e = err(exp_off_cuda.FLOORS[stage](imgs, *args), exp_off.FLOORS[stage](imgs, *args))
-            max_err[f"floor_{stage}"] = max(max_err[f"floor_{stage}"], e)
-            check(e == 0, f"floor {stage} {args} != plain on {name}: err {e}")
-        plane = exp_off.prepack(imgs)
+
+    def check_prepacked(name: str, imgs: torch.Tensor, plane: torch.Tensor) -> None:
+        _, h, w = imgs.shape
         for count in range(9, 17):
-            for t in (16, 32):
+            for t in (0, 16, 32):
                 got = exp_off_cuda.words_prepacked(plane, t, count, height=h, width=w)
                 e = max(err(got, fast_cuda.detect_words(imgs, t, count, NonmaxMode.OFF)),
                         err(got, exp_off.words_prepacked(plane, t, count, height=h, width=w)))
                 max_err["words_prepacked"] = max(max_err["words_prepacked"], e)
                 check(e == 0, f"prepacked words != fdf_fast_words OFF / plain on {name}, "
                               f"count {count}, t {t}: err {e}")
+
+    # The strip kernels' edges: 32-row strips (the 16-frame batch), 8-row
+    # strips (one 1080p frame, two of 1037 x 1931), frames lower than the
+    # circle or narrower than a strip, and 130 x 131, whose last plane tile
+    # has its high field past the frame.
+    exp_inputs = {f"batch_{BATCH}x1080x1920": batch,
+                  "golden_1x1080x1920": g1080[None],
+                  "rand_2x1037x1931": rng.integers(0, 256, (2, 1037, 1931), np.uint8),
+                  "rand_1x7x9": rng.integers(0, 256, (1, 7, 9), np.uint8),
+                  "rand_1x5x200": rng.integers(0, 256, (1, 5, 200), np.uint8),
+                  "rand_1x130x131": rng.integers(0, 256, (1, 130, 131), np.uint8)}
+    for name, arr in exp_inputs.items():
+        imgs = torch.from_numpy(arr).to(dev)
+        for stage, args in ((exp_off.LOAD, ()), (exp_off.TRIPLE, (128,)), (exp_off.TRIPLE, (8,)),
+                            (exp_off.PREFILTER, (16, 9)), (exp_off.PREFILTER, (16, 12))):
+            e = err(exp_off_cuda.FLOORS[stage](imgs, *args), exp_off.FLOORS[stage](imgs, *args))
+            max_err[f"floor_{stage}"] = max(max_err[f"floor_{stage}"], e)
+            check(e == 0, f"floor {stage} {args} != plain on {name}: err {e}")
+        check_prepacked(name, imgs, exp_off.prepack(imgs))
         log(f"experiment kernels vs plain: {name} {arr.shape}: floors LOAD, TRIPLE (span 128 "
             f"and 8), PREFILTER (need 2 and 3) bit-exact; prepacked words == fdf_fast_words OFF "
-            f"== plain at counts 9..16 x t (16, 32)")
+            f"== plain at counts 9..16 x t (0, 16, 32)")
+    # Planes the prepacked kernel stages element by element: a pitch that is
+    # not a multiple of 4 (131 columns of a 1037 x 131 frame's 256-column
+    # plane), and a base 4 bytes past a 16-byte boundary.
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, 1037, 131), np.uint8)).to(dev)
+    check_prepacked("rand_1x1037x131, pitch 131", imgs,
+                    exp_off.prepack(imgs)[..., :131].contiguous())
+    imgs = torch.from_numpy(exp_inputs["rand_2x1037x1931"]).to(dev)
+    plane = exp_off.prepack(imgs)
+    shifted = torch.empty(plane.numel() + 1, dtype=torch.int32, device=dev)[1:].view(plane.shape)
+    shifted.copy_(plane)
+    check(shifted.data_ptr() % 16 == 4, "the shifted plane's base is not 4 B past 16")
+    check_prepacked("rand_2x1037x1931, base 4 B past 16", imgs, shifted)
+    log("experiment kernels vs plain: prepacked words on a pitch-131 plane and on a plane "
+        "based 4 B past a 16-byte boundary == fdf_fast_words OFF == plain at counts 9..16 x "
+        "t (0, 16, 32)")
     # The byte-SWAR tool's seeded planes in [0, 2^30), and planes over the
     # whole int32 range, where the adds wrap.
     prng = np.random.default_rng(0)
@@ -877,12 +904,15 @@ def main() -> int:
     # each output written once, at 3.35 TB/s) or by its integer operations
     # (at 16.7 T lane-operations/s), whichever is larger.
     xy_np = kps.xy.cpu().numpy()
+    # The prepacked kernel computes fdf_fast_words OFF's words: its work.
+    work16 = fb[("fdf_fast_words", "off", f"batch {BATCH}")]
     bounds = {
         "brief_words": _common.brief_words_bound(BATCH, 1080, 1920),
         "extract_windows": _common.extract_windows_bound(xy_np, 1080, 1920),
         "extract_patches": _common.extract_patches_bound(xy_np, 1080, 1920),
-        "words_prepacked": _common.words_prepacked_bound(
-            plane.numel() * plane.element_size(), BATCH, 1080, 1920),
+        "words_prepacked": {**{k: work16[k] for k in ("pixels", "candidates", "corners")},
+                            **_common.words_prepacked_bound(plane.numel() * plane.element_size(),
+                                                            BATCH, 1080, 1920, 9, work16)},
         **{f"floor_{stage}": _common.floor_bound(stage, BATCH, 1080, 1920)
            for stage in exp_off.FLOORS},
         **{key: _common.swar_pred_bound(key, xs[0].numel()) for key, xs in preds.items()},

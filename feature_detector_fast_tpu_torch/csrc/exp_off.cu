@@ -16,36 +16,47 @@
 // and k8 :84).  The plain PyTorch versions are ops/exp_off.py;
 // ops/exp_off_cuda.py checks arguments and launches.
 //
-// Design.  The floors and the prepacked kernel keep the grid and store
-// fdf_fast_words had when they were written: a 32 x 8 block, the frame in
-// gridDim.z, one thread per pixel, and a warp's __ballot_sync of the keep
-// flags as the packed word, which lane 0 stores.  So each floor is that
-// 32 x 8 kernel with stages taken away (fast.cu has since moved to
-// 128-column strips, so the floors no longer split its time into stages):
+// Two designs.  LOAD and TRIPLE keep the grid and store fdf_fast_words had
+// when they were written: a 32 x 8 block, the frame in gridDim.z, one
+// thread per pixel, and a warp's __ballot_sync of the keep flags as the
+// packed word, which lane 0 stores:
 //
 //   LOAD       stages the block's own 32 x 8 u8 tile (no halo); keep = px & 1
 //   TRIPLE     stages three 32 x 8 tiles, the block's and the ones `span`
 //              rows above and below (block index clamped to the frame, rows
 //              past the frame read 0); keep = (prev ^ cur ^ next) & 1
-//   PREFILTER  stages the tile with fast.cu's 4-px halo and runs the
-//              cardinal prefilter alone: keep = (>= need of the 4 cardinal
-//              taps bright) or (>= need dark), strict int32 compares, 0
-//              outside x in [3, W-4], y in [3, H-4]
 //
-// and the 32 x 8 kernel's OFF time minus PREFILTER is its arc test.  The TPU
-// pallas-win kernel cannot run as written (one input for three in_specs, a
-// (64, 128) value stored into a (128, 128) block, and an output that is 0
-// everywhere); PREFILTER measures what it was meant to: the window build
-// plus _swar_window_prefilter's cardinal test (fast_pallas.py:381-396).
+// PREFILTER and the prepacked kernel share fdf_fast_words' skeleton as it
+// stands (namespace strip below): a block of 4 warps walks a 128-column
+// strip of 32 rows (8 where 32 would leave the card short of blocks), one
+// column per lane, staged once with the strip's 4-px halo; a warp's ballot
+// is the packed word.  Their device functions are fast.cu's, copied
+// verbatim (cuda_build keys a library by the hash of its one source, so an
+// #include would leave a stale build; tests/test_torch_exp_off.py holds the
+// copies to fast.cu's text):
 //
-// The prepacked kernel reads the TPU tool's plane, built outside the kernel
-// (ops/exp_off.py prepack): per 128-row tile, 72 packed int32 rows whose
-// low / high 16-bit fields hold frame rows 128 i + j - 3 and that + 64.  A
-// block's 8 rows lie in one tile and one field, so it stages that field's
-// bytes (14 rows and a 4-px halo) and runs the OFF arc test and the
-// interior mask as fdf_fast_words does; the words equal fdf_fast_words OFF.
-// The TPU kernel's MXU pack matmul and SWAR pixel pairs are not carried
-// over: the ballot packs, and one thread tests one pixel.
+//   PREFILTER  fdf_fast_words OFF with the arc test taken out: the cardinal
+//              prefilter alone, keep = (>= need of the 4 cardinal taps
+//              bright) or (>= need dark), strict int32 compares, 0 outside
+//              x in [3, W-4], y in [3, H-4].  So fdf_fast_words OFF minus
+//              PREFILTER is its arc test with the warp's row skip.
+//   PREPACKED  fdf_fast_words OFF (prefilter, row skip, arc test) on the
+//              TPU tool's plane, built outside the kernel (ops/exp_off.py
+//              prepack): per 128-row tile, 72 packed int32 rows whose low /
+//              high 16-bit fields hold frame rows 128 i + j - 3 and that +
+//              64.  A block covers one strip of both fields of a tile: it
+//              stages the strip's packed rows once (16-byte loads where the
+//              pitch and base allow) and splits the low byte of each field
+//              into two u8 tiles, so each plane byte is read once, plus the
+//              halo.  The words equal fdf_fast_words OFF.
+//
+// The TPU pallas-win kernel cannot run as written (one input for three
+// in_specs, a (64, 128) value stored into a (128, 128) block, and an output
+// that is 0 everywhere); PREFILTER measures what it was meant to: the
+// window build plus _swar_window_prefilter's cardinal test
+// (fast_pallas.py:381-396).  The TPU prepacked kernel's MXU pack matmul and
+// SWAR pixel pairs are not carried over: the ballot packs, and one lane
+// tests one pixel.
 //
 // The predicate sequences are elementwise: one thread per int32 element,
 // the op sequence kept exactly, since the sequence is what is measured.
@@ -54,14 +65,16 @@
 // each right shift is an arithmetic shift of the int32_t bit pattern.
 //
 // Bound.  LOAD and TRIPLE read 1 and 3 bytes a pixel and write 1/8: device
-// memory bound (the floor of any kernel over the batch).  PREFILTER adds
-// the halo staging (640 bytes a block instead of 256) and 8 compares a
-// pixel.  The prepacked kernel reads 4 bytes a pixel pair (72/64 of it for
-// the tile's halo rows) and runs fdf_fast_words' 32 compares a pixel, so it
-// is integer-throughput bound as fdf_fast_words is.  The predicate
-// sequences are integer-throughput bound: ~100 (16-bit) and ~330 (8-bit)
-// 32-bit operations per element, against 16 bytes of traffic.
+// memory bound (the floor of any kernel over the batch).  PREFILTER does
+// the cardinal prefilter's 17 operations at every pixel: integer-throughput
+// bound (0.034 ms at (16, 1080, 1920)).  The prepacked kernel does the work
+// of fdf_fast_words OFF on the same frames (the prefilter at every pixel,
+// the arc test where it passes) and reads the 2.4x larger plane: still
+// bound by its operations (tools/_common.py words_prepacked_bound).  The
+// predicate sequences are integer-throughput bound: ~100 (16-bit) and ~330
+// (8-bit) 32-bit operations per element, against 16 bytes of traffic.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -72,65 +85,13 @@ constexpr int TILE_H = 8;
 constexpr int THREADS = TILE_W * TILE_H;
 constexpr int RADIUS = 3;
 constexpr int HALO = RADIUS + 1;  // fast.cu's halo: circle radius + nonmax ring
-constexpr int SW = TILE_W + 2 * HALO;
-constexpr int SH = TILE_H + 2 * HALO;
 
 // The prepacked plane: rows per 128-row tile, and a field's centre rows.
 constexpr int PACK_TILE = 128;
 constexpr int PACK_HALF = PACK_TILE / 2;
 constexpr int PACKED_ROWS = PACK_HALF + 2 * RADIUS + 2;
 
-// ---- copied from fast.cu (no shared header: cuda_build keys a library by
-// the hash of its one source) ------------------------------------------
-
-// The 16 circle taps, clockwise from twelve o'clock (geometry.CIRCLE), at
-// the staged pixel s of a tile with row pitch SW.
-__device__ __forceinline__ void load_taps(const uint8_t* s, int p[16]) {
-  p[0] = s[-3 * SW];
-  p[1] = s[-3 * SW + 1];
-  p[2] = s[-2 * SW + 2];
-  p[3] = s[-1 * SW + 3];
-  p[4] = s[3];
-  p[5] = s[SW + 3];
-  p[6] = s[2 * SW + 2];
-  p[7] = s[3 * SW + 1];
-  p[8] = s[3 * SW];
-  p[9] = s[3 * SW - 1];
-  p[10] = s[2 * SW - 2];
-  p[11] = s[SW - 3];
-  p[12] = s[-3];
-  p[13] = s[-SW - 3];
-  p[14] = s[-2 * SW - 2];
-  p[15] = s[-3 * SW - 1];
-}
-
-// Does some wraparound window of N consecutive bits of the 16-bit ring m
-// have all bits set?
-template <int N>
-__device__ __forceinline__ bool any_run(unsigned m) {
-  const unsigned m32 = m | (m << 16);
-  unsigned r = m32;
-#pragma unroll
-  for (int k = 1; k < N; ++k) r &= m32 >> k;
-  return (r & 0xFFFFu) != 0;
-}
-
-// Arc test at the staged pixel s: bright p - c > t, dark c - p > t.
-template <int N>
-__device__ __forceinline__ bool is_corner(const uint8_t* s, int t) {
-  int p[16];
-  load_taps(s, p);
-  const int c = s[0];
-  unsigned bright = 0, dark = 0;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    bright |= static_cast<unsigned>(p[i] - c > t) << i;
-    dark |= static_cast<unsigned>(c - p[i] > t) << i;
-  }
-  return any_run<N>(bright) || any_run<N>(dark);
-}
-
-// ---- the floors ----------------------------------------------------------
+// ---- the 32 x 8 floors ---------------------------------------------------
 
 // The warp's ballot of the keep flags is the word of its 32 columns; lane 0
 // stores it.
@@ -177,69 +138,297 @@ floor_triple_kernel(const uint8_t* __restrict__ img, int H, int W, int n_words, 
              words);
 }
 
-__global__ void __launch_bounds__(THREADS)
-floor_prefilter_kernel(const uint8_t* __restrict__ img, int H, int W, int n_words, int t,
-                       int need, int32_t* __restrict__ words) {
-  __shared__ uint8_t tile[SH * SW];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE_W + tx;
-  const int x0 = blockIdx.x * TILE_W, y0 = blockIdx.y * TILE_H;
-  const int x = x0 + tx, y = y0 + ty;
-  const uint8_t* im = img + (size_t)blockIdx.z * H * W;
-  // fast.cu's staging loop: the tile and its 4-px halo, 0 outside.
-  for (int i = tid; i < SH * SW; i += THREADS) {
-    const int sy = y0 - HALO + i / SW, sx = x0 - HALO + i % SW;
-    tile[i] = (sy >= 0 && sy < H && sx >= 0 && sx < W) ? im[(size_t)sy * W + sx] : 0;
-  }
-  __syncthreads();
-  bool keep = false;
-  if (x >= RADIUS && x < W - RADIUS && y >= RADIUS && y < H - RADIUS) {
-    const uint8_t* s = &tile[(ty + HALO) * SW + tx + HALO];
-    const int c = s[0];
-    const int card[4] = {s[-3 * SW], s[3], s[3 * SW], s[-3]};  // N, E, S, W
-    int nb = 0, nd = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      nb += card[k] - c > t;
-      nd += c - card[k] > t;
-    }
-    keep = nb >= need || nd >= need;
-  }
-  store_word(keep, y, H, n_words, words);
+// ---- the strip kernels: fdf_fast_words' skeleton --------------------------
+
+namespace strip {
+
+constexpr int STRIP_W = 128;            // 4 warps, one column per lane
+constexpr int STRIP_H = 32;             // rows a block walks down ...
+constexpr int SHORT_H = 8;              // ... or where 32 leaves the card short of blocks
+constexpr int THREADS = STRIP_W;
+constexpr int SW = STRIP_W + 2 * HALO;  // staged u8 strip pitch: 136
+constexpr int WPR = SW / 4 + 1;         // aligned words that cover a staged row
+constexpr int CHUNKS = SW / 4;          // 16-byte int32 chunks of a staged packed row
+constexpr unsigned FULL = 0xFFFFFFFFu;
+static_assert(SW % 4 == 0, "staged rows start 4-byte aligned");
+static_assert(PACK_HALF % STRIP_H == 0, "a field's rows are whole strips");
+// Blocks that fill the H100 once: 132 SMs x 16 resident blocks of 128
+// threads (fast.cu's rule).
+constexpr long long MIN_BLOCKS = 132 * 16;
+
+// ---- copied verbatim from fast.cu ----------------------------------------
+
+// The 16 circle taps, clockwise from twelve o'clock (geometry.CIRCLE):
+// (0,-3) (1,-3) (2,-2) (3,-1) (3,0) (3,1) (2,2) (1,3)
+// (0,3) (-1,3) (-2,2) (-3,1) (-3,0) (-3,-1) (-2,-2) (-1,-3), as (dx, dy).
+// The cardinal taps 0, 4, 8 and 12 are loaded by the caller.
+__device__ __forceinline__ void load_taps(const uint8_t* s, int p[16]) {
+  p[1] = s[-3 * SW + 1];
+  p[2] = s[-2 * SW + 2];
+  p[3] = s[-1 * SW + 3];
+  p[5] = s[SW + 3];
+  p[6] = s[2 * SW + 2];
+  p[7] = s[3 * SW + 1];
+  p[9] = s[3 * SW - 1];
+  p[10] = s[2 * SW - 2];
+  p[11] = s[SW - 3];
+  p[13] = s[-SW - 3];
+  p[14] = s[-2 * SW - 2];
+  p[15] = s[-3 * SW - 1];
 }
 
-// ---- OFF words from the prepacked plane ----------------------------------
+// The tap tests as sign bits, pushed into a register: push(acc, d) is
+// (acc << 1) | (d >>> 31), one funnel shift.  With d = hi - p (negative iff
+// p is bright) and d = p - lo (negative iff p is dark) pushed for taps 15
+// down to 0, tap i's bright bit lands at 2i + 1 and its dark bit at 2i: the
+// 16-tap ring fills 32 bits, so a 32-bit rotation by 2k rotates the ring by
+// k taps for both polarities at once.
+__device__ __forceinline__ unsigned push(unsigned acc, int d) {
+  return __funnelshift_l(static_cast<unsigned>(d), acc, 1);
+}
 
+// Nonzero iff some wraparound window of N consecutive taps of the
+// interleaved ring m is all bright or all dark.  Bit 2s (+1) of r8 is the
+// AND over taps s..s+7, and a window of N (9..16) is the windows of 8 at s
+// and at s + N - 8.
 template <int N>
-__global__ void __launch_bounds__(THREADS)
-prepacked_kernel(const int32_t* __restrict__ plane, int n_rows, int pitch, int H,
-                 int W, int n_words, int t, int32_t* __restrict__ words) {
-  __shared__ uint8_t tile[SH * SW];
+__device__ __forceinline__ unsigned runs(unsigned m) {
+  const unsigned r2 = m & __funnelshift_r(m, m, 2);
+  const unsigned r4 = r2 & __funnelshift_r(r2, r2, 4);
+  const unsigned r8 = r4 & __funnelshift_r(r4, r4, 8);
+  return r8 & __funnelshift_r(r8, r8, 2 * (N - 8));
+}
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE_W + tx;
-  const int x0 = blockIdx.x * TILE_W, y0 = blockIdx.y * TILE_H;
+// At least K (2 or 3) bits of m set.
+template <int K>
+__device__ __forceinline__ bool at_least(unsigned m) {
+  const unsigned two = m & (m - 1);
+  return (K == 2 ? two : two & (two - 1)) != 0;
+}
+
+// Stage buffer rows [b0 - HALO, b0 + rows + HALO) x columns [x0 - HALO,
+// x0 + STRIP_W + HALO) of the frame `im` into `tile`, 0 outside the buffer
+// (such pixels only feed pixels that are not detectable).  A thread loads
+// one 4-byte-aligned word of a row at a time, whole where all its bytes lie
+// in the row's columns [0, W), else byte by byte.
+__device__ __forceinline__ void stage(uint8_t* tile, const uint8_t* im, int b0, int x0,
+                                      int rows, int H, int W, int pitch) {
+  for (int i = threadIdx.x; i < (rows + 2 * HALO) * WPR; i += THREADS) {
+    const int ly = i / WPR, k = i - ly * WPR;
+    const int y = b0 - HALO + ly;
+    // Address of the staged row's column 0 (frame column x0 - HALO), which
+    // may lie outside the buffer; only checked bytes are read.
+    const intptr_t start = reinterpret_cast<intptr_t>(im) + static_cast<intptr_t>(y) * pitch +
+                           (x0 - HALO);
+    const intptr_t wa = (start & ~static_cast<intptr_t>(3)) + 4 * k;
+    const int c0 = static_cast<int>(wa - start);  // staged column of the word's byte 0
+    const int xw = x0 - HALO + c0;                // its frame column
+    const bool row_in = y >= 0 && y < H;
+    uint8_t* dst = tile + ly * SW;
+    if (row_in && xw >= 0 && xw + 3 < W) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(wa);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j >= 0 && c0 + j < SW) dst[c0 + j] = static_cast<uint8_t>(v >> (8 * j));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j < 0 || c0 + j >= SW) continue;
+        const bool in = row_in && xw + j >= 0 && xw + j < W;
+        dst[c0 + j] = in ? *reinterpret_cast<const uint8_t*>(wa + j) : 0;
+      }
+    }
+  }
+}
+
+// ---- fast.cu's fast_at<N, OFF>, in two halves ------------------------------
+
+// The cardinal prefilter at the staged pixel s (fast_at's first half): taps
+// 0, 4, 8 and 12 into p; at least NEED of them bright (p > hi) or NEED dark
+// (p < lo), each test a sign bit pushed into a register.
+template <int NEED>
+__device__ __forceinline__ bool cardinal(const uint8_t* s, int hi, int lo, int p[16]) {
+  p[0] = s[-3 * SW];
+  p[4] = s[3];
+  p[8] = s[3 * SW];
+  p[12] = s[-3];
+  const unsigned cb = push(push(push(push(0u, hi - p[0]), hi - p[4]), hi - p[8]), hi - p[12]);
+  const unsigned cd = push(push(push(push(0u, p[0] - lo), p[4] - lo), p[8] - lo), p[12] - lo);
+  return at_least<NEED>(cb) || at_least<NEED>(cd);
+}
+
+// An OFF keypoint at the staged pixel s, which the caller has found
+// detectable (det): the cardinal prefilter, the warp's skip of a row where
+// no lane passes it (every lane of the warp calls this), then the 16 taps'
+// sign bits in one interleaved ring and the run test.
+template <int N>
+__device__ __forceinline__ bool corner_at(const uint8_t* s, int t, bool det) {
+  constexpr int NEED = N >= 12 ? 3 : 2;  // cardinal taps any run of N covers
+  const int c = s[0], hi = c + t, lo = c - t;
+  int p[16];
+  const bool cand = det && cardinal<NEED>(s, hi, lo, p);
+  if (!__any_sync(FULL, cand) || !cand) return false;
+  load_taps(s, p);
+  unsigned ring = 0;
+#pragma unroll
+  for (int i = 15; i >= 0; --i) ring = push(push(ring, hi - p[i]), p[i] - lo);
+  return runs<N>(ring) != 0;
+}
+
+// The warp's ballot of the keep flags is the word of its 32 columns in
+// output row `row` (frame * H + y); lane 0 stores it.
+__device__ __forceinline__ void emit(bool keep, size_t row, int word, int n_words,
+                                     int32_t* __restrict__ words) {
+  const unsigned bits = __ballot_sync(FULL, keep);
+  if ((threadIdx.x & 31) == 0 && word < n_words)
+    words[row * n_words + word] = static_cast<int32_t>(bits);
+}
+
+// PREFILTER: a block walks ROWS rows of a 128-column strip of frame
+// blockIdx.z.
+template <int NEED, int ROWS>
+__global__ void __launch_bounds__(THREADS, 16)
+prefilter_kernel(const uint8_t* __restrict__ img, int H, int W, int n_words, int t,
+                 int32_t* __restrict__ words) {
+  __shared__ __align__(16) uint8_t tile[(ROWS + 2 * HALO) * SW];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * STRIP_W, y0 = blockIdx.y * ROWS;
   const size_t frame = blockIdx.z;
-  // The block's 8 rows share a tile and a field (8 divides 64): packed row
-  // j0 of that field holds row y0 as a circle centre.
-  const int ti = y0 / PACK_TILE, shift = 16 * ((y0 % PACK_TILE) / PACK_HALF);
-  const int j0 = y0 % PACK_HALF + RADIUS;
-  const int32_t* pl = plane + (frame * n_rows + (size_t)ti * PACKED_ROWS) * pitch;
+  const int x = x0 + tid, word = (x0 >> 5) + (tid >> 5);
 
-  for (int i = tid; i < SH * SW; i += THREADS) {
-    const int j = j0 - HALO + i / SW, sx = x0 - HALO + i % SW;
-    tile[i] = (j >= 0 && j < PACKED_ROWS && sx >= 0 && sx < pitch)
-                  ? static_cast<uint8_t>(pl[(size_t)j * pitch + sx] >> shift)
-                  : 0;
+  stage(tile, img + frame * H * W, y0, x0, ROWS, H, W, W);
+  __syncthreads();
+
+  const bool col_ok = x >= RADIUS && x < W - RADIUS;
+  const int rows = min(ROWS, H - y0);
+  for (int r = 0; r < rows; ++r) {
+    const int y = y0 + r;
+    const uint8_t* s = &tile[(r + HALO) * SW + tid + HALO];
+    const int c = s[0];
+    int p[16];
+    const bool det = col_ok && y >= RADIUS && y < H - RADIUS;
+    emit(det && cardinal<NEED>(s, c + t, c - t, p), frame * H + y, word, n_words, words);
+  }
+}
+
+// PREPACKED: a block covers centre rows [r0, r0 + ROWS) of both fields of
+// one 128-row tile of the plane (frame rows 128 ti + r0 + r and that + 64),
+// over a 128-column strip.  It stages packed rows [r0 + RADIUS - HALO,
+// r0 + RADIUS + ROWS + HALO) of the tile, columns [x0 - HALO, x0 + STRIP_W
+// + HALO), 0 outside the tile's rows and the plane's columns: as 16-byte
+// chunks where `vec` (pitch a multiple of 4 and a 16-byte aligned base, so
+// every chunk lies wholly inside or outside the columns), else element by
+// element.  The low byte of each field goes to its u8 tile.
+template <int N, int ROWS>
+__global__ void __launch_bounds__(THREADS, 16)
+prepacked_kernel(const int32_t* __restrict__ plane, int n_rows, int pitch, int H, int W,
+                 int n_words, int t, bool vec, int32_t* __restrict__ words) {
+  constexpr int SR = ROWS + 2 * HALO;        // staged packed rows
+  constexpr int STRIPS = PACK_HALF / ROWS;   // strips in a field's 64 centre rows
+  __shared__ __align__(16) uint8_t tile[2][SR * SW];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * STRIP_W;
+  const int ti = blockIdx.y / STRIPS, r0 = blockIdx.y % STRIPS * ROWS;
+  const int y0 = ti * PACK_TILE + r0;  // frame row of field 0's first centre row
+  if (y0 >= H) return;                 // both fields lie past the frame
+  const size_t frame = blockIdx.z;
+  const int32_t* pl = plane + (frame * n_rows + static_cast<size_t>(ti) * PACKED_ROWS) * pitch;
+
+  for (int i = tid; i < SR * CHUNKS; i += THREADS) {
+    const int ly = i / CHUNKS, k = i - ly * CHUNKS;
+    const int j = r0 + RADIUS - HALO + ly;  // packed row
+    const int c = x0 - HALO + 4 * k;        // plane column of the chunk's first element
+    const bool row_in = j >= 0 && j < PACKED_ROWS;
+    const int32_t* src = pl + static_cast<ptrdiff_t>(j) * pitch;
+    int4 q = make_int4(0, 0, 0, 0);
+    if (vec) {
+      if (row_in && c >= 0 && c < pitch) q = *reinterpret_cast<const int4*>(src + c);
+    } else if (row_in) {
+      q.x = c >= 0 && c < pitch ? src[c] : 0;
+      q.y = c + 1 >= 0 && c + 1 < pitch ? src[c + 1] : 0;
+      q.z = c + 2 >= 0 && c + 2 < pitch ? src[c + 2] : 0;
+      q.w = c + 3 >= 0 && c + 3 < pitch ? src[c + 3] : 0;
+    }
+    // bytes 0 and 2 of each element: [x0 y0 x2 y2], [z0 w0 z2 w2]
+    const unsigned a = __byte_perm(q.x, q.y, 0x6240), b = __byte_perm(q.z, q.w, 0x6240);
+    *reinterpret_cast<uint32_t*>(&tile[0][ly * SW + 4 * k]) = __byte_perm(a, b, 0x5410);
+    *reinterpret_cast<uint32_t*>(&tile[1][ly * SW + 4 * k]) = __byte_perm(a, b, 0x7632);
   }
   __syncthreads();
 
-  const int x = x0 + tx, y = y0 + ty;
-  bool keep = false;
-  if (x >= RADIUS && x < W - RADIUS && y >= RADIUS && y < H - RADIUS)
-    keep = is_corner<N>(&tile[(ty + HALO) * SW + tx + HALO], t);
-  store_word(keep, y, H, n_words, words);
+  const int x = x0 + tid, word = (x0 >> 5) + (tid >> 5);
+  const bool col_ok = x >= RADIUS && x < W - RADIUS;
+#pragma unroll 1
+  for (int f = 0; f < 2; ++f) {
+    const int yf = y0 + f * PACK_HALF;  // frame row of the field's first centre row
+    const int rows = min(ROWS, H - yf);
+    for (int r = 0; r < rows; ++r) {
+      const int y = yf + r;
+      const bool det = col_ok && y >= RADIUS && y < H - RADIUS;
+      emit(corner_at<N>(&tile[f][(r + HALO) * SW + tid + HALO], t, det), frame * H + y, word,
+           n_words, words);
+    }
+  }
 }
+
+int launch_prefilter(const uint8_t* img, int32_t* words, int B, int H, int W, int t, int need,
+                     cudaStream_t st) {
+  // Strips of 32 rows, or of 8 where 32 would leave the card short of
+  // blocks (fast.cu's rule).
+  const int strips_x = (W + STRIP_W - 1) / STRIP_W;
+  const bool tall = static_cast<long long>(strips_x) * ((H + STRIP_H - 1) / STRIP_H) * B >=
+                    MIN_BLOCKS;
+  const int sh = tall ? STRIP_H : SHORT_H;
+  const dim3 grid(strips_x, (H + sh - 1) / sh, B);
+  const int n_words = (W + 31) / 32;
+#define FDF_PREFILTER(NEED, ROWS) \
+  prefilter_kernel<NEED, ROWS><<<grid, THREADS, 0, st>>>(img, H, W, n_words, t, words)
+  if (need == 2) {
+    if (tall) FDF_PREFILTER(2, STRIP_H); else FDF_PREFILTER(2, SHORT_H);
+  } else {
+    if (tall) FDF_PREFILTER(3, STRIP_H); else FDF_PREFILTER(3, SHORT_H);
+  }
+#undef FDF_PREFILTER
+  return cudaGetLastError();
+}
+
+int launch_prepacked(const int32_t* plane, int32_t* words, int B, int n_rows, int pitch, int H,
+                     int W, int t, int count, cudaStream_t st) {
+  const int strips_x = (W + STRIP_W - 1) / STRIP_W;
+  const int tiles = (H + PACK_TILE - 1) / PACK_TILE;
+  // fast.cu's rule, counting a block at 32 rows of both fields
+  const bool tall = static_cast<long long>(strips_x) * tiles * (PACK_HALF / STRIP_H) * B >=
+                    MIN_BLOCKS;
+  const int sh = tall ? STRIP_H : SHORT_H;
+  const dim3 grid(strips_x, tiles * (PACK_HALF / sh), B);
+  const int n_words = (W + 31) / 32;
+  const bool vec = pitch % 4 == 0 && reinterpret_cast<uintptr_t>(plane) % 16 == 0;
+  switch (count) {
+#define FDF_COUNT_CASE(N)                                                                   \
+  case N:                                                                                   \
+    if (tall)                                                                               \
+      prepacked_kernel<N, STRIP_H><<<grid, THREADS, 0, st>>>(plane, n_rows, pitch, H, W,    \
+                                                             n_words, t, vec, words);       \
+    else                                                                                    \
+      prepacked_kernel<N, SHORT_H><<<grid, THREADS, 0, st>>>(plane, n_rows, pitch, H, W,    \
+                                                             n_words, t, vec, words);       \
+    break;
+    FDF_COUNT_CASE(9)
+    FDF_COUNT_CASE(10)
+    FDF_COUNT_CASE(11)
+    FDF_COUNT_CASE(12)
+    FDF_COUNT_CASE(13)
+    FDF_COUNT_CASE(14)
+    FDF_COUNT_CASE(15)
+    FDF_COUNT_CASE(16)
+#undef FDF_COUNT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace strip
 
 // ---- the SWAR predicate sequences ------------------------------------------
 
@@ -333,7 +522,7 @@ int elementwise(const void* a, const void* b, const void* c, void* out, long lon
   return cudaGetLastError();
 }
 
-// A floor kernel over the (B, H, W) batch: one 32 x 8 block per tile.
+// A 32 x 8 floor kernel over the (B, H, W) batch: one block per tile.
 template <typename Launch>
 int launch_floor(int B, int H, int W, int device, Launch launch) {
   if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
@@ -372,12 +561,12 @@ int fdf_off_floor_triple(const void* img, void* words, int B, int H, int W, int 
 // `need` (2 or 3): cardinal taps one polarity must pass.
 int fdf_off_floor_prefilter(const void* img, void* words, int B, int H, int W, int threshold,
                             int need, int device, void* stream) {
-  if (threshold < 0 || threshold > 255 || need < 0 || need > 4) return cudaErrorInvalidValue;
-  return launch_floor(B, H, W, device, [&](dim3 grid, dim3 block) {
-    floor_prefilter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(img), H, W, grid.x, threshold, need,
-        static_cast<int32_t*>(words));
-  });
+  if (B <= 0 || H <= 0 || W <= 0 || threshold < 0 || threshold > 255 || need < 2 || need > 3)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return strip::launch_prefilter(static_cast<const uint8_t*>(img), static_cast<int32_t*>(words),
+                                 B, H, W, threshold, need, static_cast<cudaStream_t>(stream));
 }
 
 // plane (B, n_rows, pitch) int32, n_rows = n_tiles * 72, of frames H x W
@@ -390,30 +579,9 @@ int fdf_fast_words_prepacked(const void* plane, void* words, int B, int n_rows, 
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 block(TILE_W, TILE_H);
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  auto* in = static_cast<const int32_t*>(plane);
-  auto* out = static_cast<int32_t*>(words);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (count) {
-#define FDF_COUNT_CASE(N)                                                                 \
-  case N:                                                                                 \
-    prepacked_kernel<N><<<grid, block, 0, st>>>(in, n_rows, pitch, H, W, grid.x, threshold, \
-                                                out);                                     \
-    break;
-    FDF_COUNT_CASE(9)
-    FDF_COUNT_CASE(10)
-    FDF_COUNT_CASE(11)
-    FDF_COUNT_CASE(12)
-    FDF_COUNT_CASE(13)
-    FDF_COUNT_CASE(14)
-    FDF_COUNT_CASE(15)
-    FDF_COUNT_CASE(16)
-#undef FDF_COUNT_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return strip::launch_prepacked(static_cast<const int32_t*>(plane), static_cast<int32_t*>(words),
+                                 B, n_rows, pitch, H, W, threshold, count,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // x, hb, cw: n int32 each -> out: n int32.

@@ -14,7 +14,10 @@ rank, shape, contiguity), allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, and raises if the
 launch reports an error.  On a CPU tensor, and only there, it runs the
 plain version in ``ops/exp_off.py``.  ``LAUNCHES`` counts kernel launches
-per entry point (the floor per stage).
+per entry point (the floor per stage).  :func:`bind` declares the C
+interface on another build with the same interface, which the tools'
+``--baseline`` launches through ``_run_floor`` and ``_run_prepacked``
+(uncounted: those are not this source's kernels).
 """
 
 from __future__ import annotations
@@ -38,7 +41,12 @@ def load_library() -> ctypes.CDLL:
     """Build (on first use) and bind ``csrc/exp_off.cu``."""
     from ..utils import cuda_build
 
-    lib = cuda_build.load("exp_off.cu")
+    return bind(cuda_build.load("exp_off.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``exp_off.cu``'s entry points on ``lib`` (a
+    build of this source or of another revision with the same interface)."""
     # img, words; B, H, W, then the stage's own arguments (none; span;
     # threshold, need), device; stream
     for fn, n_args in ((lib.fdf_off_floor_load, 0), (lib.fdf_off_floor_triple, 1),
@@ -59,12 +67,12 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(fn, device: torch.device, *args) -> None:
-    """``fn(*args, device, stream)`` on the device's current stream; raise
-    if the launch reports an error."""
-    err = fn(*args, device.index, torch.cuda.current_stream(device).cuda_stream)
+def _launch(lib: ctypes.CDLL, name: str, device: torch.device, *args) -> None:
+    """``lib.<name>(*args, device, stream)`` on the device's current stream;
+    raise if the launch reports an error."""
+    err = getattr(lib, name)(*args, device.index, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        msg = load_library().fdf_error_string(err).decode()
+        msg = lib.fdf_error_string(err).decode()
         raise RuntimeError(f"exp_off kernel launch failed: {msg} (cudaError {err})")
 
 
@@ -83,14 +91,21 @@ def _words_out(b: int, h: int, w: int, device: torch.device) -> torch.Tensor:
     return torch.empty((b, h, -(-w // compact.WORD_BITS)), dtype=torch.int32, device=device)
 
 
-def _floor(stage: str, images: torch.Tensor, *args) -> torch.Tensor:
-    """The ``stage`` floor kernel of a (B, H, W) u8 batch, given the stage's
-    own arguments (already checked): (B, H, ceil(W/32)) int32 words."""
+def _run_floor(lib: ctypes.CDLL, stage: str, images: torch.Tensor, *args) -> torch.Tensor:
+    """Launch ``lib``'s ``stage`` floor on a checked (B, H, W) u8 CUDA batch,
+    given the stage's own C arguments: (B, H, ceil(W/32)) int32 words.
+    Counts nothing (the entry points below count their own launches)."""
     b, h, w = images.shape
     words = _words_out(b, h, w, images.device)
     if words.numel():
-        _launch(getattr(load_library(), f"fdf_off_floor_{stage}"), images.device,
-                images.data_ptr(), words.data_ptr(), b, h, w, *args)
+        _launch(lib, f"fdf_off_floor_{stage}", images.device, images.data_ptr(),
+                words.data_ptr(), b, h, w, *args)
+    return words
+
+
+def _floor(stage: str, images: torch.Tensor, *args) -> torch.Tensor:
+    words = _run_floor(load_library(), stage, images, *args)
+    if words.numel():
         LAUNCHES[f"floor_{stage}"] += 1
     return words
 
@@ -144,17 +159,27 @@ def words_prepacked(plane: torch.Tensor, threshold: int, count: int, *, height: 
     if plane.dim() != 3 or plane.shape[1] % exp_off.PACKED_ROWS or not plane.shape[1]:
         raise ValueError(f"expected a (B, n_tiles * {exp_off.PACKED_ROWS}, wp) plane, got "
                          f"shape {tuple(plane.shape)}")
-    b, rows, pitch = plane.shape
+    rows, pitch = plane.shape[1:]
     h, w = int(height), int(width)
     if not 1 <= h <= rows // exp_off.PACKED_ROWS * exp_off.TILE_H or not 1 <= w <= pitch:
         raise ValueError(f"frame {height} x {width} does not fit plane {tuple(plane.shape)}")
     if plane.device.type == "cpu":
         return exp_off.words_prepacked(plane, cfg.threshold, cfg.count, height=h, width=w)
-    words = _words_out(b, h, w, plane.device)
+    words = _run_prepacked(load_library(), plane, h, w, cfg.threshold, cfg.count)
     if words.numel():
-        _launch(load_library().fdf_fast_words_prepacked, plane.device, plane.data_ptr(),
-                words.data_ptr(), b, rows, pitch, h, w, cfg.threshold, cfg.count)
         LAUNCHES["words_prepacked"] += 1
+    return words
+
+
+def _run_prepacked(lib: ctypes.CDLL, plane: torch.Tensor, height: int, width: int,
+                   threshold: int, count: int) -> torch.Tensor:
+    """Launch ``lib``'s prepacked words kernel on a checked CUDA plane:
+    (B, height, ceil(width/32)) int32 words.  Counts nothing."""
+    b, rows, pitch = plane.shape
+    words = _words_out(b, height, width, plane.device)
+    if words.numel():
+        _launch(lib, "fdf_fast_words_prepacked", plane.device, plane.data_ptr(),
+                words.data_ptr(), b, rows, pitch, height, width, threshold, count)
     return words
 
 
@@ -169,9 +194,8 @@ def _pred(name: str, plain, x: torch.Tensor, a: torch.Tensor, c: torch.Tensor) -
         return plain(x, a, c)
     out = torch.empty_like(x)
     if out.numel():
-        fn = getattr(load_library(), f"fdf_swar_{name}")
-        _launch(fn, x.device, x.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(),
-                out.numel())
+        _launch(load_library(), f"fdf_swar_{name}", x.device, x.data_ptr(), a.data_ptr(),
+                c.data_ptr(), out.data_ptr(), out.numel())
         LAUNCHES[name] += 1
     return out
 

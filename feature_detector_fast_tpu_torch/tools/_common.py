@@ -11,7 +11,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -301,11 +301,14 @@ def floor_bound(stage: str, frames: int, height: int, width: int) -> dict:
     return bound(px + frames * height * -(-width // 32) * 4, px * FLOOR_OPS[stage])
 
 
-def words_prepacked_bound(plane_bytes: int, frames: int, height: int, width: int) -> dict:
-    """``fdf_fast_words_prepacked``: the prepacked int32 plane in, words out,
-    the OFF arc test on every pixel."""
-    return bound(plane_bytes + frames * height * -(-width // 32) * 4,
-                 frames * height * width * FAST_ARC_OPS)
+def words_prepacked_bound(plane_bytes: int, frames: int, height: int, width: int, count: int,
+                          work: dict) -> dict:
+    """``fdf_fast_words_prepacked``: the work of ``fdf_fast_words`` OFF, which
+    computes the same words, on the frames the plane holds (their
+    :func:`fast_work` ``work``: the prefilter at every detectable pixel, the
+    arc test where it passes); the prepacked int32 plane in, words out."""
+    return fast_bound(frames, height, width, "off", count, work, words=True,
+                      in_bytes=plane_bytes)
 
 
 #: Integer operations per int32 element of the SWAR predicate sequences
@@ -322,6 +325,41 @@ def swar_pred_bound(name: str, elements: int) -> dict:
     """A SWAR predicate kernel over three int32 planes of ``elements``
     elements, one int32 plane out."""
     return bound(elements * 16, elements * SWAR_OPS[name])
+
+
+def baseline_library(binding, path: Optional[str], device: torch.device):
+    """Another revision of a kernel source at ``path`` (same C interface),
+    built beside the current one and bound by ``binding.bind``; None without
+    ``path``.  Raises off the card: a before/after is a device measurement."""
+    if path is None:
+        return None
+    if device.type != "cuda":
+        raise ValueError("--baseline needs the card")
+    from ..utils import cuda_build
+
+    return binding.bind(cuda_build.load(path))
+
+
+def same_loop_ms(fns: Dict[str, Callable], device: torch.device, *, rounds: int, repeats: int,
+                 what: str) -> Dict[str, float]:
+    """Mean device ms a call of each of ``fns`` ("current", and "baseline",
+    the same call on another revision of the kernel, where given: its
+    outputs, a tensor or a tuple of them, are checked equal first), timed by
+    :func:`loop_ms` unfolded in the order baseline, current, current,
+    baseline."""
+    if "baseline" in fns:
+        got, want = (out if isinstance(out, tuple) else (out,)
+                     for out in (fns["current"](), fns["baseline"]()))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what}: current != baseline")
+        order = ["baseline", "current", "current", "baseline"]
+    else:
+        order = ["current"]
+    times: Dict[str, list] = {name: [] for name in fns}
+    for name in order:
+        times[name].append(loop_ms(fns[name], device, rounds=rounds, repeats=repeats,
+                                   folded=False))
+    return {name: float(np.mean(t)) for name, t in times.items()}
 
 
 def tiled(base: np.ndarray, h: int, w: int) -> np.ndarray:

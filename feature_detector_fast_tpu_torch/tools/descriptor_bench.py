@@ -89,24 +89,6 @@ def _windows_call(lib, imgs: torch.Tensor, xy: torch.Tensor) -> Callable:
     return call
 
 
-def _timed(fns: Dict[str, Callable], dev: torch.device, rounds: int, repeats: int,
-           what: str) -> Dict[str, float]:
-    """Mean device ms a call of each of ``fns`` ("current", and "baseline"
-    where given, checked equal first), in the order baseline, current,
-    current, baseline."""
-    if "baseline" in fns:
-        if not torch.equal(fns["baseline"](), fns["current"]()):
-            raise AssertionError(f"{what}: current != baseline")
-        order = ["baseline", "current", "current", "baseline"]
-    else:
-        order = ["current"]
-    times: Dict[str, list] = {name: [] for name in fns}
-    for name in order:
-        times[name].append(_common.loop_ms(fns[name], dev, rounds=rounds, repeats=repeats,
-                                           folded=False))
-    return {name: float(np.mean(t)) for name, t in times.items()}
-
-
 def _record(kernel: str, at: str, ms: Dict[str, float], b: dict, rounds: int, card: str,
             **extra) -> dict:
     rec = {"tool": "descriptor_bench", "kernel": kernel, "at": at, **extra, "ms": ms["current"],
@@ -140,7 +122,8 @@ def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS,
     for n in batches:
         imgs = torch.from_numpy(rolled(img, n)).to(dev)
         fns = {name: _brief_call(lib[0], imgs) for name, lib in libs.items()}
-        ms = _timed(fns, dev, rounds, repeats, f"fdf_brief_words on {n} frames")
+        ms = _common.same_loop_ms(fns, dev, rounds=rounds, repeats=repeats,
+                                  what=f"fdf_brief_words on {n} frames")
         yield _record("fdf_brief_words", f"batch {n}", ms, _common.brief_words_bound(n, h, w),
                       rounds, card, frames=n, height=h, width=w)
 
@@ -152,7 +135,8 @@ def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS,
     # keypoints; each is timed as its own record.
     for route in ("patched", "steered"):
         fns = {name: _windows_call(lib[1], imgs, xy) for name, lib in libs.items()}
-        ms = _timed(fns, dev, rounds, repeats, f"fdf_extract_windows ({route})")
+        ms = _common.same_loop_ms(fns, dev, rounds=rounds, repeats=repeats,
+                                  what=f"fdf_extract_windows ({route})")
         yield _record("fdf_extract_windows", f"{batch_k} x {k} keypoints, {route} route", ms,
                       _common.extract_windows_bound(xy.cpu().numpy(), h, w), rounds, card,
                       frames=batch_k, k=k, route=route)

@@ -19,21 +19,31 @@ per frame (median of ``repeats``):
                 measure): the 4-px halo staging and the cardinal prefilter
   production    fdf_fast_words OFF
 
-and, last, each floor's share of ``production``.  The floors keep the
-32 x 8 block skeleton ``fdf_fast_words`` had when they were written; the
-kernel now walks 128-column strips with a prefilter skip, so the shares no
-longer split its time into stages.  The JAX tool's
+and, last, each floor's share of ``production``.  LOAD and TRIPLE keep
+the 32 x 8 block skeleton ``fdf_fast_words`` had when they were written;
+PREFILTER shares production's own skeleton (128-column strips, one column
+per lane, the same staging and cardinal prefilter, exp_off.cu copying
+fast.cu's device functions), so ``production - prefilter`` is the arc test
+with its warp row skip, and ``arc_test_share`` its share.  The JAX tool's
 ``trivial`` stage (production with a 2-op body, by monkeypatching JAX
 internals) has no further counterpart: ``prefilter`` beside ``production``
-is that comparison, and ``production - prefilter`` is the arc test.
+is that comparison.
 
-    python -m feature_detector_fast_tpu_torch.tools.exp_off_floor [--device cpu] [--rounds N]
+``--baseline PATH`` names another revision of ``exp_off.cu`` with the same
+C interface (for example the previous commit's, written out with ``git
+show``).  It is built beside the current one; each floor kernel's words
+are checked equal to the baseline's, and both are timed as device ms a
+call (``_common.same_loop_ms``: unfolded, in the order baseline, current,
+current, baseline), with their bounds and, beside them, production's
+device ms a call and the arc-test share from these times.
+
+    python -m feature_detector_fast_tpu_torch.tools.exp_off_floor [--device cpu] [--rounds N] [--batch N] [--baseline PATH]
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch.nn.functional as F
@@ -47,8 +57,9 @@ THRESHOLD, COUNT = 16, 9
 
 
 def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS, batch: int = BATCH,
-        frame: np.ndarray = None) -> Iterator[dict]:
+        frame: np.ndarray = None, baseline: Optional[str] = None) -> Iterator[dict]:
     dev, card = _common.start(device)
+    base_lib = _common.baseline_library(exp_off_cuda, baseline, dev)
     img = _common.build_1080p_frame() if frame is None else frame
     imgs = _common.batch_of(img, batch, dev)
     h, w = img.shape
@@ -71,11 +82,48 @@ def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS, batch: i
            **{f"{s}_share": ms[s] / ms["production"] for s in stages if s != "production"},
            "arc_test_share": (ms["production"] - ms["prefilter"]) / ms["production"],
            "device": card}
+    if base_lib is None:
+        return
+    # The floor kernels against the baseline build's, each with its own C
+    # arguments, then production, all as device ms a call.
+    c_args = {exp_off.LOAD: (), exp_off.TRIPLE: (exp_off.TILE_H,),
+              exp_off.PREFILTER: (THRESHOLD, exp_off.need_for(COUNT))}
+    call = {}
+    for stage, args in c_args.items():
+        kernel = f"fdf_off_floor_{stage}"
+        call[stage] = _common.same_loop_ms(
+            {"current": stages[stage],
+             "baseline": lambda stage=stage, args=args: exp_off_cuda._run_floor(
+                 base_lib, stage, imgs, *args)},
+            dev, rounds=rounds, repeats=repeats, what=kernel)
+        b = _common.floor_bound(stage, batch, h, w)
+        _common.log(f"{kernel}: {call[stage]['current']:.5f} ms a call, baseline "
+                    f"{call[stage]['baseline']:.5f}, bound {b['bound_ms']:.5f}")
+        yield {"tool": "exp_off_floor", "stage": f"{stage} vs baseline", "kernel": kernel,
+               "batch": batch, "height": h, "width": w, "ms": call[stage]["current"],
+               "baseline_ms": call[stage]["baseline"],
+               "speedup": call[stage]["baseline"] / call[stage]["current"], **b,
+               "share_of_bound": b["bound_ms"] / call[stage]["current"],
+               "baseline_share_of_bound": b["bound_ms"] / call[stage]["baseline"],
+               "rounds": rounds, "device": card}
+    prod = _common.same_loop_ms({"current": stages["production"]}, dev, rounds=rounds,
+                                repeats=repeats, what="production")["current"]
+    pre = call[exp_off.PREFILTER]
+    yield {"tool": "exp_off_floor", "stage": "arc test vs baseline", "batch": batch,
+           "production_ms": prod, "prefilter_ms": pre["current"],
+           "baseline_prefilter_ms": pre["baseline"],
+           "arc_test_share": (prod - pre["current"]) / prod,
+           "baseline_arc_test_share": (prod - pre["baseline"]) / prod, "device": card}
 
 
 def main(argv=None) -> int:
-    args = _common.parser(__doc__, ROUNDS).parse_args(argv)
-    return _common.print_records(run(device=args.device, rounds=args.rounds))
+    ap = _common.parser(__doc__, ROUNDS)
+    ap.add_argument("--batch", type=int, default=BATCH, help=f"frames (default {BATCH})")
+    ap.add_argument("--baseline", default=None,
+                    help="another revision of exp_off.cu (same C interface) to time against")
+    args = ap.parse_args(argv)
+    return _common.print_records(run(device=args.device, rounds=args.rounds, batch=args.batch,
+                                     baseline=args.baseline))
 
 
 if __name__ == "__main__":

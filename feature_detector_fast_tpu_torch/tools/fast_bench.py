@@ -87,12 +87,6 @@ def _plain_calls(imgs: torch.Tensor, mode: NonmaxMode, tiles: Optional[tuple] = 
             "dense": lambda: fast_cuda.detect_dense_tiles(ext, row0, THRESHOLD, COUNT, mode, **kw)}
 
 
-def _same(a, b) -> bool:
-    a = a if isinstance(a, tuple) else (a,)
-    b = b if isinstance(b, tuple) else (b,)
-    return all(torch.equal(x, y) for x, y in zip(a, b))
-
-
 def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS,
         frame: np.ndarray = None, batches=BATCHES, shards: int = SHARDS,
         baseline: Optional[str] = None) -> Iterator[dict]:
@@ -101,12 +95,9 @@ def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS,
     h, w = img.shape
     on_card = dev.type == "cuda"
     libs = {"current": fast_cuda.load_library() if on_card else None}
-    if baseline is not None:
-        if not on_card:
-            raise ValueError("--baseline needs the card")
-        from ..utils import cuda_build
-
-        libs["baseline"] = fast_cuda.bind(cuda_build.load(baseline))
+    base = _common.baseline_library(fast_cuda, baseline, dev)
+    if base is not None:
+        libs["baseline"] = base
 
     rows = spatial.shard_rows(h, shards)
     [(_, ext, row0)] = spatial.shard_slabs(torch.from_numpy(img), [dev] * shards, rows)
@@ -122,24 +113,18 @@ def run(*, device="cuda", rounds: int = ROUNDS, repeats: int = REPEATS,
                             else _plain_calls(imgs, mode, tiles)) for name, lib in libs.items()}
             for form in ("words", "dense"):
                 kernel = "fdf_fast_" + form + ("" if tiles is None else "_tiles")
-                fns = {name: c[form] for name, c in calls.items()}
-                if "baseline" in fns and not _same(fns["baseline"](), fns["current"]()):
-                    raise AssertionError(f"{kernel} {mode.value} on {where}: current != baseline")
-                order = (["baseline", "current", "current", "baseline"] if "baseline" in fns
-                         else ["current"])
-                times: Dict[str, list] = {name: [] for name in fns}
-                for name in order:
-                    times[name].append(_common.loop_ms(fns[name], dev, rounds=rounds,
-                                                       repeats=repeats, folded=False))
-                ms = float(np.mean(times["current"]))
+                ms_by = _common.same_loop_ms({name: c[form] for name, c in calls.items()}, dev,
+                                             rounds=rounds, repeats=repeats,
+                                             what=f"{kernel} {mode.value} on {where}")
+                ms = ms_by["current"]
                 b = _common.fast_bound(frames, out_rows, w, mode.value, COUNT, work,
                                        words=form == "words", in_bytes=in_bytes)
                 rec = {"tool": "fast_bench", "kernel": kernel, "mode": mode.value, "at": where,
                        "frames": frames, "rows": out_rows, "width": w, "threshold": THRESHOLD,
                        "count": COUNT, **work, "ms": ms, **b,
                        "share_of_bound": b["bound_ms"] / ms, "rounds": rounds, "device": card}
-                if "baseline" in times:
-                    rec["baseline_ms"] = float(np.mean(times["baseline"]))
+                if "baseline" in ms_by:
+                    rec["baseline_ms"] = ms_by["baseline"]
                     rec["speedup"] = rec["baseline_ms"] / ms
                 _common.log(f"{kernel} {mode.value} {where}: {ms:.5f} ms, bound "
                             f"{b['bound_ms']:.5f} ({b['bound_by']})"

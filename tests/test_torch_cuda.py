@@ -251,15 +251,25 @@ def test_spatial_list_matches_detect_arrays(device):
             assert torch.equal(mask, k_mask[0].bool()) and torch.equal(score, k_score[0])
 
 
+#: The OFF-floor strip kernels' edges: 8-row strips (one 1080p frame, two
+#: of 1037 x 1931, small batches), 32-row strips (5 and 8 frames of 1080p:
+#: enough strips to fill the card), frames lower than the circle or
+#: narrower than a strip, and 130 x 131, whose last plane tile has its high
+#: field past the frame.
+STRIP_EDGE_SHAPES = [(2, 300, 157), (1, 61, 33), (3, 8, 64), (1, 1080, 1920), (1, 7, 9),
+                     (1, 5, 200), (1, 130, 131), (2, 1037, 1931)]
+
+
 @pytest.mark.parametrize("stage", ["load", "triple", "prefilter"])
 def test_off_floor_matches_plain(device, stage):
     """Each OFF floor stage == its plain version on the card (TRIPLE at span
-    128 and 8, PREFILTER at need 2 and 3), one launch per call."""
+    128 and 8, PREFILTER at need 2 and 3), one launch per call, on the strip
+    kernels' edges and a batch of 5 1080p frames (32-row strips)."""
     from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
 
     rng = np.random.default_rng(13)
     cases = {"load": [()], "triple": [(128,), (8,)], "prefilter": [(16, 9), (16, 12)]}[stage]
-    for shape in [(2, 300, 157), (1, 61, 33), (3, 8, 64)]:
+    for shape in STRIP_EDGE_SHAPES + [(5, 1080, 1920)]:
         imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
         for args in cases:
             before = exp_off_cuda.LAUNCHES[f"floor_{stage}"]
@@ -272,22 +282,36 @@ def test_off_floor_matches_plain(device, stage):
 
 def test_words_prepacked_matches_words_kernel(device):
     """The prepacked words kernel == fdf_fast_words OFF and == its plain
-    version, counts 9..=16, t 16 and 32, on frames with a partial last
-    tile and a width off the 32 and 128 grids."""
+    version, counts 9..=16, t 0, 16 and 32, on the strip kernels' edges and
+    8 frames of 1080p (32-row strips), and on planes it stages element by
+    element: a pitch of 131 (not a multiple of 4) and a base 4 bytes past a
+    16-byte boundary."""
     from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
 
     rng = np.random.default_rng(14)
-    imgs = torch.from_numpy(rng.integers(0, 256, (2, 301, 157), np.uint8)).to(device)
-    plane = exp_off.prepack(imgs)
-    for count in range(9, 17):
-        for t in (16, 32):
-            before = exp_off_cuda.LAUNCHES["words_prepacked"]
-            got = exp_off_cuda.words_prepacked(plane, t, count, height=301, width=157)
-            torch.cuda.synchronize()
-            assert exp_off_cuda.LAUNCHES["words_prepacked"] == before + 1
-            assert torch.equal(got, fast_cuda.detect_words(imgs, t, count, NonmaxMode.OFF))
-            assert torch.equal(got, exp_off.words_prepacked(plane, t, count, height=301,
-                                                            width=157))
+    cases = []
+    for shape in STRIP_EDGE_SHAPES + [(8, 1080, 1920)]:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(device)
+        cases.append((shape, imgs, exp_off.prepack(imgs)))
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, 1037, 131), np.uint8)).to(device)
+    cases.append(("pitch 131", imgs, exp_off.prepack(imgs)[..., :131].contiguous()))
+    imgs, plane = cases[-2][1], cases[-2][2]
+    shifted = torch.empty(plane.numel() + 1, dtype=torch.int32, device=device)[1:]
+    shifted = shifted.view(plane.shape).copy_(plane)
+    assert shifted.data_ptr() % 16 == 4
+    cases.append(("base 4 B past 16", imgs, shifted))
+    for what, imgs, plane in cases:
+        _, h, w = imgs.shape
+        for count in range(9, 17):
+            for t in (0, 16, 32):
+                before = exp_off_cuda.LAUNCHES["words_prepacked"]
+                got = exp_off_cuda.words_prepacked(plane, t, count, height=h, width=w)
+                torch.cuda.synchronize()
+                assert exp_off_cuda.LAUNCHES["words_prepacked"] == before + 1
+                assert torch.equal(got, fast_cuda.detect_words(imgs, t, count, NonmaxMode.OFF)), \
+                    (what, count, t)
+                assert torch.equal(got, exp_off.words_prepacked(plane, t, count, height=h,
+                                                                width=w)), (what, count, t)
 
 
 @pytest.mark.parametrize("name", ["pred16", "pred8"])

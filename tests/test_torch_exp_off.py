@@ -9,6 +9,11 @@ Every output is an integer plane, so every comparison is exact: the
 tolerance is zero.
 """
 
+import ctypes
+import os
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,9 @@ from feature_detector_fast_tpu.geometry import RADIUS
 from feature_detector_fast_tpu.ops import fast_pallas as fp
 from feature_detector_fast_tpu_torch.config import NonmaxMode
 from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda, fast_cuda
+
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "feature_detector_fast_tpu_torch",
+                    "csrc")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -254,6 +262,83 @@ def test_words_prepacked_matches_words_kernel_plain(rng):
         want = fast_cuda.detect_words(torch.from_numpy(imgs), 16, count, NonmaxMode.OFF)
         got = exp_off.words_prepacked(plane, 16, count, height=141, width=99)
         assert torch.equal(got, want), count
+
+
+def test_words_prepacked_narrow_plane(rng):
+    """A plane cut to the frame's own 131 columns (a pitch that is not a
+    multiple of 4, which the kernel stages element by element) gives the
+    words of the whole plane, equal to the words entry point's CPU path, on
+    a 130 x 131 frame whose last tile has its high field past the frame."""
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, 130, 131), np.uint8))
+    narrow = exp_off.prepack(imgs)[..., :131].contiguous()
+    assert narrow.shape == (1, 2 * exp_off.PACKED_ROWS, 131)
+    for count in (9, 12, 16):
+        want = fast_cuda.detect_words(imgs, 16, count, NonmaxMode.OFF)
+        assert torch.equal(exp_off.words_prepacked(narrow, 16, count, height=130, width=131),
+                           want)
+        assert torch.equal(exp_off_cuda.words_prepacked(narrow, 16, count, height=130,
+                                                        width=131), want)
+
+
+def read_source(name: str) -> str:
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def device_function(source: str, name: str) -> str:
+    """The device function ``name`` of a CUDA source, its template line to
+    its closing brace, with whitespace collapsed (comments inside the body
+    included)."""
+    m = re.search(r"(template <[^>]*>\s*)?__device__ __forceinline__ \w+ %s\(" % name, source)
+    assert m is not None, f"no device function {name}"
+    depth = 0
+    for i in range(source.index("{", m.end()), len(source)):
+        depth += {"{": 1, "}": -1}.get(source[i], 0)
+        if depth == 0:
+            return " ".join(source[m.start():i + 1].split())
+    raise AssertionError(f"unbalanced braces in {name}")
+
+
+@pytest.mark.parametrize("name", ["stage", "push", "at_least", "runs", "load_taps"])
+def test_strip_kernels_copy_fast_cu(name):
+    """The OFF-floor strip kernels (PREFILTER and the prepacked words) share
+    fdf_fast_words' staging and tests: each device function exp_off.cu
+    copies from fast.cu has fast.cu's text, whitespace aside."""
+    assert device_function(read_source("exp_off.cu"), name) == \
+        device_function(read_source("fast.cu"), name)
+
+
+def test_strip_constants_match_fast_cu():
+    """The constants the copied functions and the strip launch read (strip
+    width and heights, block, halo, staged pitch, the full-card block count)
+    are fast.cu's: those of exp_off.cu's strip namespace, else its own."""
+    def constants(text: str) -> dict:
+        return dict(re.findall(r"constexpr (?:int|long long|unsigned) (\w+) = ([^;]+);", text))
+
+    src = read_source("exp_off.cu")
+    strip = src[src.index("namespace strip {"):src.index("}  // namespace strip")]
+    ours, fast = {**constants(src), **constants(strip)}, constants(read_source("fast.cu"))
+    for name in ("STRIP_W", "STRIP_H", "SHORT_H", "THREADS", "RADIUS", "HALO", "SW", "WPR",
+                 "FULL", "MIN_BLOCKS"):
+        assert ours[name] == fast[name], name
+
+
+def test_bind_declares_the_c_interface():
+    """``bind`` gives each entry point of exp_off.cu the argument types of
+    its C signature (pointers and the stream as void*, int, long long) and
+    its result type, on any library object: a baseline build of another
+    revision is bound the same way."""
+    extern = read_source("exp_off.cu").split('extern "C" {')[1]
+    sigs = re.findall(r"\n(int|const char\*) (fdf_\w+)\(([^)]*)\)", extern)
+    assert len(sigs) == 7
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for _, name, _ in sigs})
+    assert exp_off_cuda.bind(lib) is lib
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
+    for result, name, params in sigs:
+        fn = getattr(lib, name)
+        assert fn.argtypes == [kinds[" ".join(p.split()[:-1])] for p in params.split(",")], name
+        assert fn.restype == (ctypes.c_int if result == "int" else ctypes.c_char_p), name
 
 
 # tools/exp_off_byteswar.py, :46-52 and the kernel bodies k16 (:60-82) and

@@ -90,6 +90,54 @@ def test_exp_off_prepack_records(crop):
     assert exp_off_cuda.LAUNCHES == before  # the CPU path launches nothing
 
 
+@pytest.mark.parametrize("tool", [exp_off_floor, exp_off_prepack], ids=lambda t: t.__name__)
+def test_exp_off_tools_baseline_needs_the_card(tool, crop):
+    """A before/after against another exp_off.cu revision is a device
+    measurement: off the card --baseline raises before anything runs."""
+    with pytest.raises(ValueError, match="needs the card"):
+        next(tool.run(device="cpu", frame=crop, baseline="exp_off.cu"))
+
+
+@pytest.mark.parametrize("tool", [exp_off_floor, exp_off_prepack], ids=lambda t: t.__name__)
+def test_exp_off_tools_main_batch(tool, tmp_path, monkeypatch, capsys, crop):
+    """``main`` takes --batch (the frames of the timed batch) and prints one
+    JSON record a line."""
+    path = str(tmp_path / "frame.png")
+    save_image(crop, path)
+    monkeypatch.setenv("INPUT_FILE", path)
+    assert tool.main(["--device", "cpu", "--rounds", "1", "--batch", "3"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert recs and all(r["device"] == "cpu" for r in recs)
+    assert {r["batch"] for r in recs if "batch" in r} == {3}
+
+
+def test_same_loop_ms_checks_and_interleaves():
+    """same_loop_ms checks the baseline's outputs (tensors or tuples) equal
+    the current ones, then times baseline, current, current, baseline;
+    without a baseline it times the current call once."""
+    calls = []
+
+    def fn(name, value=1):
+        def call():
+            calls.append(name)
+            return torch.full((2,), value), torch.zeros(1)
+        return call
+
+    cpu = torch.device("cpu")
+    ms = _common.same_loop_ms({"current": fn("c"), "baseline": fn("b")}, cpu, rounds=2,
+                              repeats=1, what="k")
+    assert set(ms) == {"current", "baseline"} and min(ms.values()) > 0
+    # the check, then per timing a warm-up call and rounds x repeats calls
+    assert calls == ["c", "b"] + ["b"] * 3 + ["c"] * 6 + ["b"] * 3
+    calls.clear()
+    assert set(_common.same_loop_ms({"current": fn("c")}, cpu, rounds=2, repeats=1,
+                                    what="k")) == {"current"}
+    assert calls == ["c"] * 3
+    with pytest.raises(AssertionError, match="k: current != baseline"):
+        _common.same_loop_ms({"current": fn("c"), "baseline": fn("b", 2)}, cpu, rounds=1,
+                             repeats=1, what="k")
+
+
 def test_exp_off_byteswar_records():
     recs = list(exp_off_byteswar.run(device="cpu", rounds=1, repeats=1, rows=8, grid=4))
     assert [r["stage"] for r in recs] == ["seq16", "seq8", "ratio"]
@@ -356,6 +404,21 @@ def test_fast_work_counts(crop):
     padded = torch.nn.functional.pad(cand, (0, -w % 32))
     assert work["busy_warp_rows"] == int(padded.reshape(2, h, -1, 32).any(-1).sum())
     assert work["candidates"] / 32 <= work["busy_warp_rows"] <= work["candidates"]
+
+
+def test_words_prepacked_bound_counts():
+    """The prepacked words kernel computes fdf_fast_words OFF's words, so its
+    operations are the OFF words kernel's on the same frames (17 at every
+    detectable pixel, 40 more past the prefilter); its bytes are the
+    prepacked plane's (per 128-row tile 72 int32 rows of the 1920-wide
+    frame) and the words out."""
+    plane_bytes = 16 * 9 * 72 * 1920 * 4
+    b = _common.words_prepacked_bound(plane_bytes, *BATCH_1080P, 9, WORK_1080P)
+    off = _common.fast_bound(*BATCH_1080P, "off", 9, WORK_1080P, words=True)
+    assert (b["int_ops"], b["bytes"], b["bound_by"]) == (669_055_232, 79_626_240 + 4_147_200,
+                                                         "operations")
+    assert b["int_ops"] == off["int_ops"] and b["bound_ms"] == off["bound_ms"]
+    assert b["bound_ms"] == pytest.approx(0.0399987, rel=1e-5)
 
 
 def test_kernel_bound_counts():
