@@ -41,9 +41,12 @@ with the reason no single PyTorch call computes the same function.  The
 build's ``-Xptxas -v`` log gives registers, shared memory and spills of
 every kernel; a spill in any source, or an OFF instantiation of
 ``fast.cu`` above 32 registers, fails the run.  The descriptor kernels are
-also held bit-exact on their tilings' edges, and the OFF-floor strip
+also held bit-exact on their tilings' edges, the OFF-floor strip
 kernels on 8- and 32-row strips, frames narrower and lower than a strip,
-and planes that need element loads.
+and planes that need element loads, and the streaming floors on widths
+their 16-byte path takes (1920, 16, 48) and ones it does not, on bases 1
+B and 4 B past a 16-byte boundary, and at spans 128, 8, 1, 3, H and past
+H; these two are also timed at 64 frames.
 
 Before its last line it prints the card (``nvidia-smi`` name and power
 limit) and one JSON object ``{"kernels": [...]}``; its last line is
@@ -391,27 +394,51 @@ def main() -> int:
                 check(e == 0, f"prepacked words != fdf_fast_words OFF / plain on {name}, "
                               f"count {count}, t {t}: err {e}")
 
+    def check_floors(name: str, imgs: torch.Tensor) -> None:
+        # TRIPLE at the tool's span 128, and at spans 8, 1, 3, H and past H
+        # (one block: TRIPLE is LOAD).
+        h = imgs.shape[1]
+        triples = tuple((exp_off.TRIPLE, (span,)) for span in (128, 8, 1, 3, h, 2 * h + 1))
+        for stage, args in ((exp_off.LOAD, ()), *triples,
+                            (exp_off.PREFILTER, (16, 9)), (exp_off.PREFILTER, (16, 12))):
+            e = err(exp_off_cuda.FLOORS[stage](imgs, *args), exp_off.FLOORS[stage](imgs, *args))
+            max_err[f"floor_{stage}"] = max(max_err[f"floor_{stage}"], e)
+            check(e == 0, f"floor {stage} {args} != plain on {name}: err {e}")
+
     # The strip kernels' edges: 32-row strips (the 16-frame batch), 8-row
     # strips (one 1080p frame, two of 1037 x 1931), frames lower than the
     # circle or narrower than a strip, and 130 x 131, whose last plane tile
-    # has its high field past the frame.
+    # has its high field past the frame.  The streaming floors' 16-byte
+    # path: widths 1920 (two chunks a word), 16 (one) and 48 (a partial
+    # last word of one chunk); the others take element loads.
     exp_inputs = {f"batch_{BATCH}x1080x1920": batch,
                   "golden_1x1080x1920": g1080[None],
                   "rand_2x1037x1931": rng.integers(0, 256, (2, 1037, 1931), np.uint8),
                   "rand_1x7x9": rng.integers(0, 256, (1, 7, 9), np.uint8),
                   "rand_1x5x200": rng.integers(0, 256, (1, 5, 200), np.uint8),
-                  "rand_1x130x131": rng.integers(0, 256, (1, 130, 131), np.uint8)}
+                  "rand_1x130x131": rng.integers(0, 256, (1, 130, 131), np.uint8),
+                  "rand_3x37x16": rng.integers(0, 256, (3, 37, 16), np.uint8),
+                  "rand_2x61x48": rng.integers(0, 256, (2, 61, 48), np.uint8)}
     for name, arr in exp_inputs.items():
         imgs = torch.from_numpy(arr).to(dev)
-        for stage, args in ((exp_off.LOAD, ()), (exp_off.TRIPLE, (128,)), (exp_off.TRIPLE, (8,)),
-                            (exp_off.PREFILTER, (16, 9)), (exp_off.PREFILTER, (16, 12))):
-            e = err(exp_off_cuda.FLOORS[stage](imgs, *args), exp_off.FLOORS[stage](imgs, *args))
-            max_err[f"floor_{stage}"] = max(max_err[f"floor_{stage}"], e)
-            check(e == 0, f"floor {stage} {args} != plain on {name}: err {e}")
+        check_floors(name, imgs)
         check_prepacked(name, imgs, exp_off.prepack(imgs))
-        log(f"experiment kernels vs plain: {name} {arr.shape}: floors LOAD, TRIPLE (span 128 "
-            f"and 8), PREFILTER (need 2 and 3) bit-exact; prepacked words == fdf_fast_words OFF "
-            f"== plain at counts 9..16 x t (0, 16, 32)")
+        log(f"experiment kernels vs plain: {name} {arr.shape}: floors LOAD, TRIPLE (spans 128, "
+            f"8, 1, 3, H, 2H + 1), PREFILTER (need 2 and 3) bit-exact; prepacked words == "
+            f"fdf_fast_words OFF == plain at counts 9..16 x t (0, 16, 32)")
+    # Batches the streaming floors load element by element for their base
+    # alone: contiguous views 1 B and 4 B past a 16-byte boundary.
+    for off in (1, 4):
+        for name in (f"batch_{BATCH}x1080x1920", "rand_2x61x48"):
+            imgs = torch.from_numpy(exp_inputs[name]).to(dev)
+            shifted = torch.empty(imgs.numel() + off, dtype=torch.uint8,
+                                  device=dev)[off:].view(imgs.shape)
+            shifted.copy_(imgs)
+            check(shifted.data_ptr() % 16 == off,
+                  f"the shifted batch's base is not {off} B past 16")
+            check_floors(f"{name}, base {off} B past 16", shifted)
+    log("experiment kernels vs plain: floors on batches based 1 B and 4 B past a 16-byte "
+        f"boundary (batch_{BATCH}x1080x1920, rand_2x61x48), every span, bit-exact")
     # Planes the prepacked kernel stages element by element: a pitch that is
     # not a multiple of 4 (131 columns of a 1037 x 131 frame's 256-column
     # plane), and a base 4 bytes past a 16-byte boundary.
@@ -881,6 +908,14 @@ def main() -> int:
         et[f"floor_{stage}"] = (
             device_ms(lambda: exp_off_cuda.FLOORS[stage](imgs)),
             time_cuda(lambda: exp_off.FLOORS[stage](imgs), repeats=5, inner=2))
+    # The streaming floors also at 64 frames (133 MB): the 16-frame batch
+    # (33 MB) may stay in the 50 MB L2 between rounds, the 64-frame one not.
+    imgs64 = imgs.repeat(4, 1, 1)
+    et64 = {f"floor_{stage}": device_ms(lambda: exp_off_cuda.FLOORS[stage](imgs64))
+            for stage in (exp_off.LOAD, exp_off.TRIPLE)}
+    del imgs64
+    log("timing streaming floors, one (64, 1080, 1920) call, ms a call (device): " + ", ".join(
+        f"{k} {v:.5f}" for k, v in et64.items()))
     pp_kw = dict(height=1080, width=1920)
     et["words_prepacked"] = (
         device_ms(lambda: exp_off_cuda.words_prepacked(plane, 16, 9, **pp_kw)),
@@ -1056,12 +1091,22 @@ def main() -> int:
             "launches_counted_in": "the tools phase",
             "ms_is": "device time, launches queued behind a ~2 ms device sleep",
         })
+        if key in et64:
+            b64 = _common.floor_bound(key[len("floor_"):], 4 * BATCH, 1080, 1920)["bound_ms"]
+            rows[-1].update({
+                "ms_64_frames": et64[key], "bound_ms_64_frames": b64,
+                "share_of_bound_64_frames": b64 / et64[key],
+                "l2_note": "the 16-frame batch (33 MB) may be served from the 50 MB L2 across "
+                           "rounds; the 64-frame share (133 MB) is the device-memory share"})
     for row in rows:
         if row["share_of_bound"] is None:
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
         log(f"kernel {row['name']}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by "
             f"{row['bound_by']} ({row['bound_basis']}), {100 * row['share_of_bound']:.1f}% of "
-            f"the bound; launches on its path {row['launches']}")
+            f"the bound; launches on its path {row['launches']}"
+            + (f"; 64 frames {row['ms_64_frames']:.5f} ms, "
+               f"{100 * row['share_of_bound_64_frames']:.1f}% of {row['bound_ms_64_frames']:.5f}"
+               if "ms_64_frames" in row else ""))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

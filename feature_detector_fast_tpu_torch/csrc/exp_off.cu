@@ -16,15 +16,29 @@
 // and k8 :84).  The plain PyTorch versions are ops/exp_off.py;
 // ops/exp_off_cuda.py checks arguments and launches.
 //
-// Two designs.  LOAD and TRIPLE keep the grid and store fdf_fast_words had
-// when they were written: a 32 x 8 block, the frame in gridDim.z, one
-// thread per pixel, and a warp's __ballot_sync of the keep flags as the
-// packed word, which lane 0 stores:
+// Two designs.  LOAD and TRIPLE are streaming kernels (namespace stream
+// below): no shared memory and no ballot.  A thread makes one output word
+// at a time, a warp 32 consecutive words (128 contiguous bytes of output),
+// and each word is packed from its 32 bytes in registers: for each 4 bytes
+// v, ((v & 0x01010101) * 0x01020408) >> 24 is their 4 low bits in column
+// order.  Where W % 16 == 0 and the batch starts 16-byte aligned, a warp's
+// words are one contiguous run of at most 64 16-byte chunks: lane i loads
+// chunks i and i + 32 (512 contiguous bytes a load), packs each to 16 bits,
+// and the words gather their halves by warp shuffles.  Any other width or
+// base takes element loads, the ragged last word zero-filled.
 //
-//   LOAD       stages the block's own 32 x 8 u8 tile (no halo); keep = px & 1
-//   TRIPLE     stages three 32 x 8 tiles, the block's and the ones `span`
-//              rows above and below (block index clamped to the frame, rows
-//              past the frame read 0); keep = (prev ^ cur ^ next) & 1
+//   LOAD       keep = px & 1: the batch as one run of words, warps striding
+//              over it
+//   TRIPLE     keep = (prev ^ cur ^ next) & 1, prev / next the same row of
+//              the neighbouring span-row block (block index clamped to the
+//              frame, rows past the frame read 0).  A warp holds 32 words of
+//              the rows [0, min(span, H)) and walks them down the frame, one
+//              span-row block a step, keeping the packed words of the
+//              previous, current and next block in registers and the next
+//              two blocks' loads in flight: each input byte is read from
+//              device memory once.  Where the chains would leave the card
+//              short of warps (small spans, few frames), each is cut into
+//              segments that re-read one block at each end.
 //
 // PREFILTER and the prepacked kernel share fdf_fast_words' skeleton as it
 // stands (namespace strip below): a block of 4 warps walks a 128-column
@@ -64,8 +78,10 @@
 // undefined in C++, so the adds, subtractions and ~ run in uint32_t and
 // each right shift is an arithmetic shift of the int32_t bit pattern.
 //
-// Bound.  LOAD and TRIPLE read 1 and 3 bytes a pixel and write 1/8: device
-// memory bound (the floor of any kernel over the batch).  PREFILTER does
+// Bound.  LOAD and TRIPLE read each byte of the batch once and write 1/8 of
+// a byte a pixel: device-memory bound, the floor of any kernel over the
+// batch (0.0111 ms at (16, 1080, 1920)); their few operations a byte (the
+// multiply pack, the shuffles) stay under it.  PREFILTER does
 // the cardinal prefilter's 17 operations at every pixel: integer-throughput
 // bound (0.034 ms at (16, 1080, 1920)).  The prepacked kernel does the work
 // of fdf_fast_words OFF on the same frames (the prefilter at every pixel,
@@ -74,15 +90,13 @@
 // predicate sequences are integer-throughput bound: ~100 (16-bit) and ~330
 // (8-bit) 32-bit operations per element, against 16 bytes of traffic.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE_W = 32;  // one warp per tile row: one ballot, one word
-constexpr int TILE_H = 8;
-constexpr int THREADS = TILE_W * TILE_H;
 constexpr int RADIUS = 3;
 constexpr int HALO = RADIUS + 1;  // fast.cu's halo: circle radius + nonmax ring
 
@@ -91,52 +105,220 @@ constexpr int PACK_TILE = 128;
 constexpr int PACK_HALF = PACK_TILE / 2;
 constexpr int PACKED_ROWS = PACK_HALF + 2 * RADIUS + 2;
 
-// ---- the 32 x 8 floors ---------------------------------------------------
+// ---- the streaming floors: LOAD and TRIPLE ---------------------------------
 
-// The warp's ballot of the keep flags is the word of its 32 columns; lane 0
-// stores it.
-__device__ __forceinline__ void store_word(bool keep, int y, int H, int n_words,
-                                           int32_t* __restrict__ words) {
-  const unsigned word = __ballot_sync(0xFFFFFFFFu, keep);
-  if (threadIdx.x == 0 && y < H)
-    words[((size_t)blockIdx.z * H + y) * n_words + blockIdx.x] = static_cast<int32_t>(word);
+namespace stream {
+
+constexpr int BLOCK = 256;  // threads a block
+constexpr int WARPS = BLOCK / 32;
+constexpr int LOAD_RESIDENT = 8;    // blocks an SM: 2048 threads
+constexpr int TRIPLE_RESIDENT = 4;  // 1024 threads, for the walk's registers
+// TRIPLE's chains are cut into segments, none shorter than MIN_STEPS
+// blocks, where they would give the H100 fewer than 512 threads an SM
+// (span 128 over 16 frames of 1080p gives ~930, and runs uncut: cutting it
+// re-reads 2 of 9 blocks).
+constexpr long long FILL_WARPS = 132LL * 512 / 32;
+constexpr int MIN_STEPS = 4;
+constexpr unsigned ALL = 0xFFFFFFFFu;
+
+// The low bits of 4 bytes, byte j to bit j: the multiply moves bit 8j of
+// v & 0x01010101 to bit 24 + j, and its other partial products land on
+// distinct bits below 24, so nothing carries.
+__device__ __forceinline__ uint32_t low_bits4(uint32_t v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-__global__ void __launch_bounds__(THREADS)
-floor_load_kernel(const uint8_t* __restrict__ img, int H, int W, int n_words,
-                  int32_t* __restrict__ words) {
-  __shared__ uint8_t tile[THREADS];
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int x = blockIdx.x * TILE_W + threadIdx.x, y = blockIdx.y * TILE_H + threadIdx.y;
-  const uint8_t* im = img + (size_t)blockIdx.z * H * W;
-  tile[tid] = (y < H && x < W) ? im[(size_t)y * W + x] : 0;
-  __syncthreads();
-  store_word(tile[tid] & 1, y, H, n_words, words);
+// The low bits of a 16-byte chunk, byte j to bit j.
+__device__ __forceinline__ uint32_t low_bits16(uint4 q) {
+  return low_bits4(q.x) | low_bits4(q.y) << 4 | low_bits4(q.z) << 8 | low_bits4(q.w) << 12;
 }
 
-// Row `span` rows from y in the direction d (-1 or +1): the same row of the
-// neighbouring span-row block, the block index clamped to [0, n_blk).
-__device__ __forceinline__ int triple_row(int y, int span, int n_blk, int d) {
-  const int blk = min(max(y / span + d, 0), n_blk - 1);
-  return blk * span + y % span;
-}
+// A run of whole rows of W bytes from `base`, its words numbered row by row
+// from 0: word t is columns [32 c, 32 c + 32) of row t / nw, c = t % nw,
+// zero past the row's end.  A warp takes n (1..32) consecutive words t0 ..
+// t0 + n - 1 at a time, lane i word t0 + i; lanes i >= n make 0.  span(t0)
+// places the warp's words (the same for every run of the same rows),
+// fetch() issues their loads and word() packs what the loads brought; each
+// is called by the whole warp.
 
-__global__ void __launch_bounds__(THREADS)
-floor_triple_kernel(const uint8_t* __restrict__ img, int H, int W, int n_words, int span,
-                    int32_t* __restrict__ words) {
-  __shared__ uint8_t tile[3 * THREADS];
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int x = blockIdx.x * TILE_W + threadIdx.x, y = blockIdx.y * TILE_H + threadIdx.y;
-  const uint8_t* im = img + (size_t)blockIdx.z * H * W;
-  const int n_blk = (H + span - 1) / span;
-  const int rows[3] = {triple_row(y, span, n_blk, -1), y, triple_row(y, span, n_blk, 1)};
+// Element loads, for any width and base: word() loads the lane's bytes.
+struct ByteWords {
+  int W, nw;
+  struct Span { long long t0; };
+  struct Raw {};
+
+  __device__ __forceinline__ Span span(long long t0) const { return {t0}; }
+  __device__ __forceinline__ Raw fetch(const uint8_t*, const Span&, int) const { return {}; }
+  __device__ __forceinline__ uint32_t word(const uint8_t* base, const Span& sp, int n,
+                                           const Raw&) const {
+    const int lane = threadIdx.x & 31;
+    if (lane >= n) return 0;
+    const long long t = sp.t0 + lane, r = t / nw;
+    const int c = static_cast<int>(t - r * nw), m = min(32, W - 32 * c);
+    const uint8_t* p = base + r * W + 32 * c;
+    uint32_t w = 0;
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    tile[k * THREADS + tid] = (rows[k] < H && x < W) ? im[(size_t)rows[k] * W + x] : 0;
-  __syncthreads();
-  store_word((tile[tid] ^ tile[THREADS + tid] ^ tile[2 * THREADS + tid]) & 1, y, H, n_words,
-             words);
+    for (int i = 0; i < 32; ++i)
+      if (i < m) w |= static_cast<uint32_t>(p[i] & 1) << i;
+    return w;
+  }
+};
+
+// 16-byte loads, where W % 16 == 0 and the run starts 16-byte aligned: a
+// row is cw = W / 16 whole chunks, so a warp's words are the chunks
+// [first, first + e] of the run, e < 64.  Lane i loads chunks first + i and
+// first + 32 + i (each load instruction 512 contiguous bytes) and packs them
+// to the low and high halves of one register; a word gathers its two
+// halves (one where a row of odd cw ends) from the lanes that hold them.
+struct ChunkWords {
+  int nw, cw;
+  // The chunk of the warp's first word (first); this lane's word's first
+  // chunk, counted from there (s); whether the word has a second chunk.
+  struct Span { long long first; int s; bool two; };
+  struct Raw { uint4 a, b; };
+
+  __device__ __forceinline__ Span span(long long t0) const {
+    const int lane = threadIdx.x & 31;
+    if ((cw & 1) == 0) return {2 * t0, 2 * lane, true};
+    const long long t = t0 + lane, r = t / nw;
+    const int c = static_cast<int>(t - r * nw);
+    const long long f = r * cw + 2 * c;
+    const long long first = __shfl_sync(ALL, f, 0);
+    return {first, static_cast<int>(f - first), 2 * c + 1 < cw};
+  }
+  __device__ __forceinline__ Raw fetch(const uint8_t* base, const Span& sp, int n) const {
+    const int lane = threadIdx.x & 31;
+    const int e = __shfl_sync(ALL, sp.s + sp.two, n - 1);  // the last word's last chunk
+    const uint4* p = reinterpret_cast<const uint4*>(base) + sp.first + lane;
+    Raw q = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    if (lane <= e) q.a = __ldg(p);
+    if (lane + 32 <= e) q.b = __ldg(p + 32);
+    return q;
+  }
+  __device__ __forceinline__ uint32_t word(const uint8_t*, const Span& sp, int n,
+                                           const Raw& q) const {
+    // Chunk j (0..63 from first) sits in lane j % 32, in the low half for j < 32.
+    const uint32_t v = low_bits16(q.a) | low_bits16(q.b) << 16;
+    const int s = sp.s;
+    const uint32_t a = __shfl_sync(ALL, v, s & 31), b = __shfl_sync(ALL, v, (s + 1) & 31);
+    const uint32_t lo = s < 32 ? a & 0xFFFFu : a >> 16;
+    const uint32_t hi = !sp.two ? 0u : s + 1 < 32 ? b << 16 : b & 0xFFFF0000u;
+    return (threadIdx.x & 31) < n ? lo | hi : 0u;
+  }
+};
+
+// LOAD: the batch is one run of n_words words; warps stride over it, 32
+// words at a time.
+template <class Words>
+__global__ void __launch_bounds__(BLOCK, LOAD_RESIDENT)
+load_kernel(const uint8_t* __restrict__ img, long long n_words, Words of,
+            int32_t* __restrict__ words) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = 32LL * WARPS * gridDim.x;
+  for (long long t0 = 32 * (static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32);
+       t0 < n_words; t0 += stride) {
+    const int n = static_cast<int>(min(32LL, n_words - t0));
+    const typename Words::Span sp = of.span(t0);
+    const uint32_t w = of.word(img, sp, n, of.fetch(img, sp, n));
+    if (lane < n) words[t0 + lane] = static_cast<int32_t>(w);
+  }
 }
+
+// TRIPLE: warp g holds words [t0, t0 + 32) of the rows [0, min(span, H)) of
+// one frame, the same words of every span-row block k (rows k span + r),
+// and walks blocks [k0, k1) of its segment of the chain.  Block k's word
+// is prev ^ cur ^ next of the packed words of blocks k - 1, k and k + 1:
+// block 0's prev and the last block's next are the block itself, and a row
+// of block k + 1 past H packs to 0.  The loads run two blocks ahead.
+template <class Words>
+__global__ void __launch_bounds__(BLOCK, TRIPLE_RESIDENT)
+triple_kernel(const uint8_t* __restrict__ img, int H, int W, int nw, int span, int n_blk,
+              int frame_warps, int n_seg, int seg_steps, long long n_warps, Words of,
+              int32_t* __restrict__ words) {
+  using Raw = typename Words::Raw;
+  const long long g = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
+  if (g >= n_warps) return;
+  const int lane = threadIdx.x & 31;
+  const int t0 = 32 * static_cast<int>(g % frame_warps);
+  const long long chain = g / frame_warps, b = chain / n_seg;
+  const int k0 = static_cast<int>(chain % n_seg) * seg_steps, k1 = min(k0 + seg_steps, n_blk);
+  const int kn = min(k1, n_blk - 1);  // the last block the segment reads
+  const uint8_t* frame = img + static_cast<size_t>(b) * H * W;
+  int32_t* out = words + static_cast<size_t>(b) * H * nw + t0 + lane;
+  const typename Words::Span sp = of.span(t0);
+
+  // Words of block k this warp holds (<= 0 past the frame).
+  auto held = [&](int k) { return min(32, min(span, H - k * span) * nw - t0); };
+  auto base = [&](int k) { return frame + static_cast<size_t>(k) * span * W; };
+  auto fetch = [&](int k) {
+    const int n = held(k);
+    return n > 0 ? of.fetch(base(k), sp, n) : Raw{};
+  };
+  auto word = [&](int k, const Raw& q) {
+    const int n = held(k);
+    return n > 0 ? of.word(base(k), sp, n, q) : 0u;
+  };
+
+  const Raw qp = k0 > 0 ? fetch(k0 - 1) : Raw{};
+  const Raw qc = fetch(k0);
+  Raw qn = k0 + 1 <= kn ? fetch(k0 + 1) : Raw{};
+  uint32_t cur = word(k0, qc);
+  uint32_t prev = k0 > 0 ? word(k0 - 1, qp) : cur;
+  for (int k = k0; k < k1; ++k) {
+    const Raw ahead = k + 2 <= kn ? fetch(k + 2) : Raw{};
+    const uint32_t next = k + 1 < n_blk ? word(k + 1, qn) : cur;
+    if (lane < held(k))
+      out[static_cast<size_t>(k) * span * nw] = static_cast<int32_t>(prev ^ cur ^ next);
+    prev = cur;
+    cur = next;
+    qn = ahead;
+  }
+}
+
+// 16-byte loads where every row starts 16-byte aligned.
+inline bool chunked(const uint8_t* img, int W) {
+  return W % 16 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
+}
+
+int launch_load(const uint8_t* img, int32_t* words, int B, int H, int W, cudaStream_t st) {
+  const int nw = (W + 31) / 32;
+  const long long n_words = static_cast<long long>(B) * H * nw;
+  const auto blocks = static_cast<unsigned>(
+      std::min((n_words + 32 * WARPS - 1) / (32 * WARPS), 0x7FFFFFFFLL));
+  auto go = [&](auto of) { load_kernel<<<blocks, BLOCK, 0, st>>>(img, n_words, of, words); };
+  if (chunked(img, W))
+    go(ChunkWords{nw, W / 16});
+  else
+    go(ByteWords{W, nw});
+  return cudaGetLastError();
+}
+
+int launch_triple(const uint8_t* img, int32_t* words, int B, int H, int W, int span,
+                  cudaStream_t st) {
+  const int nw = (W + 31) / 32;
+  const int n_blk = static_cast<int>((H + static_cast<long long>(span) - 1) / span);
+  const int frame_warps = (std::min(span, H) * nw + 31) / 32;
+  const long long chains = static_cast<long long>(B) * frame_warps;
+  // Segments: enough chains to fill the card, none under MIN_STEPS blocks.
+  const long long cuts = std::max(1LL, std::min((FILL_WARPS + chains - 1) / chains,
+                                                (n_blk + MIN_STEPS - 1LL) / MIN_STEPS));
+  const int seg_steps = static_cast<int>((n_blk + cuts - 1) / cuts);
+  const int n_seg = (n_blk + seg_steps - 1) / seg_steps;
+  const long long n_warps = chains * n_seg;
+  const long long blocks = (n_warps + WARPS - 1) / WARPS;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  auto go = [&](auto of) {
+    triple_kernel<<<static_cast<unsigned>(blocks), BLOCK, 0, st>>>(
+        img, H, W, nw, span, n_blk, frame_warps, n_seg, seg_steps, n_warps, of, words);
+  };
+  if (chunked(img, W))
+    go(ChunkWords{nw, W / 16});
+  else
+    go(ByteWords{W, nw});
+  return cudaGetLastError();
+}
+
+}  // namespace stream
 
 // ---- the strip kernels: fdf_fast_words' skeleton --------------------------
 
@@ -522,17 +704,6 @@ int elementwise(const void* a, const void* b, const void* c, void* out, long lon
   return cudaGetLastError();
 }
 
-// A 32 x 8 floor kernel over the (B, H, W) batch: one block per tile.
-template <typename Launch>
-int launch_floor(int B, int H, int W, int device, Launch launch) {
-  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  launch(grid, dim3(TILE_W, TILE_H));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -543,19 +714,20 @@ extern "C" {
 // The floors: img (B, H, W) u8 -> words (B, H, ceil(W/32)) int32.
 int fdf_off_floor_load(const void* img, void* words, int B, int H, int W, int device,
                        void* stream) {
-  return launch_floor(B, H, W, device, [&](dim3 grid, dim3 block) {
-    floor_load_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(img), H, W, grid.x, static_cast<int32_t*>(words));
-  });
+  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return stream::launch_load(static_cast<const uint8_t*>(img), static_cast<int32_t*>(words), B,
+                             H, W, static_cast<cudaStream_t>(stream));
 }
 
 int fdf_off_floor_triple(const void* img, void* words, int B, int H, int W, int span,
                          int device, void* stream) {
-  if (span <= 0) return cudaErrorInvalidValue;
-  return launch_floor(B, H, W, device, [&](dim3 grid, dim3 block) {
-    floor_triple_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(img), H, W, grid.x, span, static_cast<int32_t*>(words));
-  });
+  if (B <= 0 || H <= 0 || W <= 0 || span <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return stream::launch_triple(static_cast<const uint8_t*>(img), static_cast<int32_t*>(words),
+                               B, H, W, span, static_cast<cudaStream_t>(stream));
 }
 
 // `need` (2 or 3): cardinal taps one polarity must pass.

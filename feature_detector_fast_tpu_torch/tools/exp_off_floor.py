@@ -11,23 +11,27 @@ per frame (median of ``repeats``):
                 ``imgs ^ z`` pass is needed to keep a round from being
                 folded away, and none is timed
   pad-floor     + the pad to the 128-multiple grid the TPU kernels took
-  load          fdf_off_floor_load (``pallas-1in``): stage the block's u8
-                tile, keep = px & 1, ballot store
-  triple        fdf_off_floor_triple at span 128 (``pallas-3in``): three
-                tiles 128 rows apart
+  load          fdf_off_floor_load (``pallas-1in``): read the frames once,
+                keep = px & 1, store the words
+  triple        fdf_off_floor_triple at span 128 (``pallas-3in``): the
+                same row of the blocks 128 rows above and below, each byte
+                still read once
   prefilter     fdf_off_floor_prefilter (what ``pallas-win`` was meant to
                 measure): the 4-px halo staging and the cardinal prefilter
   production    fdf_fast_words OFF
 
-and, last, each floor's share of ``production``.  LOAD and TRIPLE keep
-the 32 x 8 block skeleton ``fdf_fast_words`` had when they were written;
-PREFILTER shares production's own skeleton (128-column strips, one column
-per lane, the same staging and cardinal prefilter, exp_off.cu copying
-fast.cu's device functions), so ``production - prefilter`` is the arc test
-with its warp row skip, and ``arc_test_share`` its share.  The JAX tool's
-``trivial`` stage (production with a 2-op body, by monkeypatching JAX
-internals) has no further counterpart: ``prefilter`` beside ``production``
-is that comparison.
+and, last, each floor's share of ``production``.  LOAD and TRIPLE are
+streaming kernels: a warp packs 32 words from 16-byte loads (element loads
+for other widths and bases), and TRIPLE walks each column of words down the
+frame a 128-row block a step, keeping three blocks' words in registers, so
+it reads each input byte once; both are device-memory floors of any kernel
+over the batch.  PREFILTER shares production's own skeleton (128-column
+strips, one column per lane, the same staging and cardinal prefilter,
+exp_off.cu copying fast.cu's device functions), so ``production -
+prefilter`` is the arc test with its warp row skip, and ``arc_test_share``
+its share.  The JAX tool's ``trivial`` stage (production with a 2-op body,
+by monkeypatching JAX internals) has no further counterpart: ``prefilter``
+beside ``production`` is that comparison.
 
 ``--baseline PATH`` names another revision of ``exp_off.cu`` with the same
 C interface (for example the previous commit's, written out with ``git

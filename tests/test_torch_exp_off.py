@@ -121,6 +121,166 @@ def test_triple_matches_pallas_3in(rng, shape, span):
         np.testing.assert_array_equal(bits[i, :, :128], jax_triple(img, span)[:h].astype(bool))
 
 
+# The streaming LOAD and TRIPLE kernels of csrc/exp_off.cu (namespace
+# stream), restated in numpy over whole warps: the 16-byte chunk path
+# (W % 16 == 0, aligned base) with its multiply pack and warp shuffles, the
+# element path, and TRIPLE's chain walk in segments.
+def low_bits4(v: np.ndarray) -> np.ndarray:
+    """((v & 0x01010101) * 0x01020408) >> 24 in uint32: the 4 low bits of
+    v's bytes, byte j to bit j."""
+    v = v.astype(np.uint64)
+    return (((v & 0x01010101) * 0x01020408) & 0xFFFFFFFF) >> 24
+
+
+def low_bits16(chunks: np.ndarray) -> np.ndarray:
+    """(..., 16) u8 chunks -> their 16 low bits, byte j to bit j, 4 bytes
+    (one little-endian uint32) at a time."""
+    v = np.ascontiguousarray(chunks).view("<u4")
+    return (low_bits4(v[..., 0]) | low_bits4(v[..., 1]) << 4 | low_bits4(v[..., 2]) << 8
+            | low_bits4(v[..., 3]) << 12)
+
+
+def run_words(run: np.ndarray, width: int, chunked: bool) -> np.ndarray:
+    """The words of a run of rows (flat u8, whole rows of ``width``), as the
+    kernel's warps make them: warp w takes words [32 w, 32 w + 32), lanes
+    past the run's end make 0; uint64 words."""
+    nw = -(-width // 32)
+    n_words = run.size // width * nw
+    t0 = np.arange(0, n_words, 32, dtype=np.int64)[:, None]
+    lane = np.arange(32, dtype=np.int64)[None, :]
+    t = t0 + lane
+    n = np.minimum(32, n_words - t0)  # (tiles, 1)
+    r, c = t // nw, t % nw
+    if not chunked:  # element loads, the ragged last word zero-filled
+        cols = 32 * c[..., None] + np.arange(32)
+        inside = (cols < width) & (t < n_words)[..., None]
+        px = np.where(inside, run[np.where(inside, r[..., None] * width + cols, 0)], 0)
+        w = ((px.astype(np.uint64) & 1) << np.arange(32, dtype=np.uint64)).sum(-1)
+        return w.reshape(-1)[:n_words]
+    cw = width // 16
+    chunks = run.reshape(-1, 16)
+    if cw % 2 == 0:
+        first, s, two = 2 * t0, np.broadcast_to(2 * lane, t.shape), np.ones(t.shape, bool)
+    else:
+        f = r * cw + 2 * c
+        first, s, two = f[:, :1], f - f[:, :1], 2 * c + 1 < cw
+    e = np.take_along_axis(s + two, n - 1, axis=1)  # the warp's last chunk, from first
+
+    def lane_chunks(off: int) -> np.ndarray:
+        ok = lane + off <= e
+        idx = np.where(ok, first + lane + off, 0)
+        return np.where(ok, low_bits16(chunks[idx]), 0)
+
+    v = lane_chunks(0) | lane_chunks(32) << 16  # lane i: chunk i low, chunk i + 32 high
+    a = np.take_along_axis(v, s & 31, axis=1)
+    b = np.take_along_axis(v, (s + 1) & 31, axis=1)
+    lo = np.where(s < 32, a & 0xFFFF, a >> 16)
+    hi = np.where(~two, 0, np.where(s + 1 < 32, (b << 16) & 0xFFFFFFFF, b & 0xFFFF0000))
+    return np.where(lane < n, lo | hi, 0).reshape(-1)[:n_words]
+
+
+def as_words(w: np.ndarray, shape) -> torch.Tensor:
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32).reshape(shape))
+
+
+def stream_constants() -> dict:
+    src = read_source("exp_off.cu")
+    body = src[src.index("namespace stream {"):src.index("}  // namespace stream")]
+    consts = dict(re.findall(r"constexpr (?:int|long long) (\w+) = ([^;]+);", body))
+    return {name: eval(consts[name].replace("LL", "").replace("/", "//"), {"__builtins__": {}})
+            for name in ("FILL_WARPS", "MIN_STEPS")}
+
+
+def triple_segment_steps(b: int, h: int, w: int, span: int) -> int:
+    """launch_triple's segment length: enough chains to fill the card, none
+    shorter than MIN_STEPS blocks."""
+    k = stream_constants()
+    n_blk = -(-h // span)
+    chains = b * -(-min(span, h) * -(-w // 32) // 32)
+    cuts = max(min(-(-k["FILL_WARPS"] // chains), -(-n_blk // k["MIN_STEPS"])), 1)
+    return -(-n_blk // cuts)
+
+
+def triple_walk(imgs: np.ndarray, span: int, chunked: bool, seg_steps: int):
+    """TRIPLE as the kernel walks it: per frame, the packed words L(k) of
+    each span-row block k (rows k * span + r, r < min(span, H)), then each
+    segment [k0, k1) of the chain keeps (prev, cur, next) in three words --
+    block 0's prev and the last block's next are the block itself, a row of
+    the next block past H packs to 0.  Returns the words and the blocks each
+    segment read."""
+    bn, h, w = imgs.shape
+    nw = -(-w // 32)
+    n_blk = -(-h // span)
+    held = min(span, h) * nw
+    out = np.zeros((bn, h * nw), np.uint64)
+    reads = []
+    for i, img in enumerate(imgs):
+        blocks = [np.pad(run_words(img[k * span:(k + 1) * span].reshape(-1), w, chunked),
+                         (0, held - min(span, h - k * span) * nw)) for k in range(n_blk)]
+        for k0 in range(0, n_blk, seg_steps):
+            k1 = min(k0 + seg_steps, n_blk)
+            read = set()
+
+            def load(k):
+                read.add(k)
+                return blocks[k]
+
+            cur = load(k0)
+            prev = load(k0 - 1) if k0 > 0 else cur
+            for k in range(k0, k1):
+                nxt = load(k + 1) if k + 1 < n_blk else cur
+                rows = min(span, h - k * span) * nw
+                out[i, k * span * nw:k * span * nw + rows] = (prev ^ cur ^ nxt)[:rows]
+                prev, cur = cur, nxt
+            reads.append(sorted(read))
+    return as_words(out, (bn, h, nw)), reads
+
+
+WIDTHS = [9, 16, 48, 131, 150, 1931]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_load_matches_stream_restatement(rng, width):
+    """LOAD == the streaming kernel restated: the batch as one run of words,
+    packed by the multiply on 4 bytes at a time from 16-byte chunks gathered
+    by warp shuffles (W % 16 == 0) or by element loads (every width)."""
+    imgs = rng.integers(0, 256, (3, 37, width), np.uint8)
+    want = exp_off.floor_load(torch.from_numpy(imgs))
+    for chunked in (True, False) if width % 16 == 0 else (False,):
+        got = as_words(run_words(imgs.reshape(-1), width, chunked), want.shape)
+        assert torch.equal(got, want), chunked
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("span, height", [(1, 13), (3, 37), (8, 61), (128, 301), (45, 45),
+                                          (91, 45)])
+def test_triple_matches_stream_restatement(rng, width, span, height):
+    """TRIPLE == the chain walk restated, on heights that are not a multiple
+    of the span (and span >= H), at the kernel's segment length and at
+    segments of 1, 2 and the whole chain.  Each segment reads its blocks
+    plus one at each end, so the whole chain reads every block once."""
+    imgs = rng.integers(0, 256, (2, height, width), np.uint8)
+    want = exp_off.floor_triple(torch.from_numpy(imgs), span)
+    n_blk = -(-height // span)
+    rule = triple_segment_steps(2, height, width, span)
+    for chunked in (True, False) if width % 16 == 0 else (False,):
+        for steps in sorted({rule, 1, 2, n_blk}):
+            got, reads = triple_walk(imgs, span, chunked, steps)
+            assert torch.equal(got, want), (chunked, steps)
+            per_frame = reads[:len(reads) // 2]
+            assert per_frame == [list(range(max(k0 - 1, 0), min(k0 + steps, n_blk - 1) + 1))
+                                 for k0 in range(0, n_blk, steps)]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_triple_at_span_past_height_is_load(rng, width):
+    """With span >= H there is one block, prev = cur = next, and TRIPLE is
+    LOAD."""
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 29, width), np.uint8))
+    for span in (29, 30, 1000):
+        assert torch.equal(exp_off.floor_triple(imgs, span), exp_off.floor_load(imgs))
+
+
 def prefilter_numpy(img: np.ndarray, t: int, count: int) -> np.ndarray:
     """fast_pallas.py:385-396 restated per pixel in numpy int32, one 16-bit
     field at a time: bit 9 of p + hb (bright) and cw - p (dark) per
