@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
 version on the card (bit-exact: the outputs are integers, so the tolerance
-is zero), and drives three main paths on ``device="cuda"``, each with the
+is zero), and drives its main paths on ``device="cuda"``, each with the
 launch counters zeroed just before it and read just after:
 
 * detection -- ``detect``, ``detect_arrays``, ``detect_batch_arrays``,
@@ -26,6 +26,19 @@ launch counters zeroed just before it and read just after:
   front-end and scaling benchmarks, and the OFF-floor experiments on the
   kernels of ``csrc/exp_off.cu`` -- against the golden counts and their own
   bit-exact checks.
+* visual odometry (``vo_phase``) -- the 64-frame 640 x 480 circuit of
+  ``tools.vo_bench`` rendered once, K=512: (a) the card's features of 9
+  frames equal to the CPU path's, and ``estimate_pairs`` on 8 pairs
+  against the port's CPU path on the same draws (the ``VO_*`` gates); (b)
+  ``vo_bench.run`` with host and device-resident frames: finite poses, ATE
+  under 4% of the trajectory, one ``fdf_fast_dense`` and one
+  ``fdf_extract_windows`` launch a run, frames/s, the stage split and the
+  kernels, syncs and device time of one ``estimate_pairs``; (c) loop
+  proposal and ``run_vo_matches`` with the loops, no BA: at least one
+  accepted loop edge; then both kernels bit-exact against their plain
+  versions at the path's shapes, and the odometry ATE at 6 RANSAC seeds
+  (its spread, printed).  The geometry is plain PyTorch (the JAX package
+  computes none of it in a Pallas kernel).
 
 It then times the FAST kernels' device time against their bounds
 (``tools.fast_bench``: words and dense at 1, 16 and 64 frames of 1080p,
@@ -56,6 +69,7 @@ exits non-zero and prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -165,6 +179,183 @@ def ptxas_entries(build_log: str):
         if m and name is not None:
             out.append((name, int(m[1]), int(m[2] or 0), spill))
             name = None
+    return out
+
+
+#: The VO phase's gates for the card against the port's CPU path on the same
+#: correspondences and RANSAC draws, float32, TF32 off: 8 consecutive pairs
+#: of the rendered VGA circuit at K=512, 256 hypotheses, 6 Gauss-Newton
+#: iterations.  Measured on an H100: pair rotations 0.00021 deg apart
+#: (median), 0.0124 at most; equal inlier sets; ray depths 1.4e-3 apart
+#: (median, relative).  The gates leave 7x to 50x of margin.
+VO_PAIRS = 8
+VO_MAX_MEDIAN_ROT_DEG = 0.01
+VO_MAX_ROT_DEG = 0.1
+VO_MIN_INLIER_AGREEMENT = 0.999
+VO_MAX_MEDIAN_DEPTH_REL = 0.01
+#: The float32 image-level gate of tests/test_render_vo.py:47.
+VO_MAX_ATE_PCT = 4.0
+
+
+def vo_phase(dev: torch.device, zero_counts, counts, max_err: dict) -> dict:
+    """The VO main path on the card (``tools.vo_bench``'s F=64 VGA circuit,
+    K=512), each part with the launch counters zeroed just before it:
+
+    (a) the card's features of 9 frames equal to the CPU path's, and
+        ``estimate_pairs`` on the card against the port's CPU path, on the
+        same correspondences and draws (``VO_*`` gates);
+    (b) ``vo_bench.run`` for host and device-resident frames (a warm-up
+        run, then a timed one each): finite poses, ATE under
+        ``VO_MAX_ATE_PCT``, one ``fdf_fast_dense`` and one
+        ``fdf_extract_windows`` launch a run and no ``fdf_brief_words``;
+    (c) ``propose_loop_closures(gap=10, top_k=8)`` and ``run_vo_matches``
+        with the loop pairs (no BA): a finite trajectory with at least one
+        accepted loop edge.
+
+    Then, uncounted, the path's two kernels against their plain versions at
+    its shapes (``fdf_fast_dense`` on the (64, 480, 640) stack,
+    ``fdf_extract_windows`` at (c)'s 512 keypoints a frame; bit-exact, into
+    ``max_err``), and the ATE of the odometry path at RANSAC seeds 1-5 and
+    three times at seed 0, the spread that ``VO_MAX_ATE_PCT``'s margin is
+    read against (reported, not gated).
+
+    ``counts()`` reads the launch counters.  Returns the numbers the
+    caller prints and puts in the kernels line."""
+    from feature_detector_fast_tpu_torch.config import NonmaxMode
+    from feature_detector_fast_tpu_torch.models import slam
+    from feature_detector_fast_tpu_torch.ops import fast, fast_cuda, patch_cuda
+    from feature_detector_fast_tpu_torch.tools import vo_bench
+
+    t0 = time.perf_counter()
+    seq = vo_bench.sequence(64)
+    gt, frames = seq
+    log(f"vo: rendered the 64-frame 640x480 circuit in {time.perf_counter() - t0:.1f} s "
+        f"(host, {min(8, os.cpu_count() or 1)} processes)")
+    cam = vo_bench.render_config().camera()
+    vocfg = vo_bench.vo_config(64, cam)
+    out = {}
+
+    # (a) card against the CPU path on identical correspondences and draws
+    zero_counts()
+    sub = frames[:VO_PAIRS + 1]
+    feats = slam.frontend_features(sub, vocfg, device=dev)
+    c_xy, c_desc, c_dvalid = slam.frontend_features(sub, vocfg, device="cpu")
+    check(torch.equal(feats[0].cpu(), c_xy) and torch.equal(feats[2].cpu(), c_dvalid)
+          and torch.equal(feats[1].cpu()[c_dvalid], c_desc[c_dvalid]),
+          "vo (a): the card's keypoints or descriptors differ from the CPU path's")
+    log(f"vo (a): features of {len(sub)} frames at K=512 on the card == the CPU path's "
+        f"(keypoints, validity, descriptors at {int(c_dvalid.sum())} valid slots)")
+    batch = slam._as_pair_batch(slam.frontend_matches(sub, vocfg, features=feats, device=dev))
+    draws = slam.ransac_draws(vocfg.seed, VO_PAIRS, vocfg.ransac_hypotheses, batch.valid.shape[1])
+    t0 = time.perf_counter()
+    card = slam.estimate_pairs(batch, vocfg, draws=draws, device=dev, dtype=torch.float32)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = slam.estimate_pairs(batch, vocfg, draws=draws, device="cpu", dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    # The angle of R_card^T R_cpu from its skew part and trace (atan2): an
+    # arccos of the trace alone cannot resolve float32 matrices below ~0.03 deg.
+    rel = card.R.astype(np.float64).transpose(0, 2, 1) @ cpu.R.astype(np.float64)
+    skew = rel - rel.transpose(0, 2, 1)
+    sin = np.linalg.norm(np.stack([skew[:, 2, 1], skew[:, 0, 2], skew[:, 1, 0]], 1), axis=1) / 2
+    rot = np.degrees(np.arctan2(sin, (np.trace(rel, axis1=1, axis2=2) - 1) / 2))
+    agree = float((card.inl == cpu.inl)[batch.valid].mean())
+    both = card.inl & cpu.inl & (cpu.depths_a > 1e-6)
+    depth_rel = float(np.median(np.abs(card.depths_a[both] - cpu.depths_a[both])
+                                / cpu.depths_a[both]))
+    out["vs_cpu"] = {"pairs": VO_PAIRS, "median_rot_deg": float(np.median(rot)),
+                     "max_rot_deg": float(rot.max()), "inlier_agreement": agree,
+                     "median_depth_rel": depth_rel, "card_s": card_s, "cpu_s": cpu_s,
+                     "inliers_card": card.inl.sum(1).tolist(), "inliers_cpu": cpu.inl.sum(1).tolist()}
+    log(f"vo (a): estimate_pairs card vs the CPU path, {VO_PAIRS} pairs of K=512, 256 "
+        f"hypotheses, 6 GN: rotation difference median {np.median(rot):.5f} deg, max "
+        f"{rot.max():.5f} deg; inlier agreement {agree:.5f}; ray depth median relative "
+        f"difference {depth_rel:.2e}; inliers card {card.inl.sum(1).tolist()}, cpu "
+        f"{cpu.inl.sum(1).tolist()}; {card_s:.2f} s card (first call), {cpu_s:.2f} s CPU")
+    check(np.median(rot) <= VO_MAX_MEDIAN_ROT_DEG and rot.max() <= VO_MAX_ROT_DEG,
+          f"vo (a): rotation difference median {np.median(rot)} / max {rot.max()} deg")
+    check(agree >= VO_MIN_INLIER_AGREEMENT, f"vo (a): inlier agreement {agree}")
+    check(depth_rel <= VO_MAX_MEDIAN_DEPTH_REL, f"vo (a): ray depth difference {depth_rel}")
+
+    # (b) the slice at full width, host and device-resident frames
+    runs = vo_bench.run(device=dev, seq=seq)
+    for resident in (False, True):
+        zero_counts()
+        rec = next(runs)
+        n = counts()
+        check(rec["resident"] == resident and rec["poses_finite"], f"vo (b): {rec}")
+        check(rec["ate_pct_of_trajectory"] < VO_MAX_ATE_PCT,
+              f"vo (b): ATE {rec['ate_pct_of_trajectory']}% of the trajectory")
+        # a warm-up run and a timed run
+        check(n["fdf_fast_dense"] == 2 and n["fdf_extract_windows"] == 2
+              and n["fdf_brief_words"] == 0, f"vo (b): launches {n} over two runs")
+        tag = "resident" if resident else "host"
+        out[tag] = dict(rec, launches_per_run={k: v // 2 for k, v in n.items()})
+        stages = {k: v for k, v in rec.items() if k.endswith("_s") and k != "total_s"}
+        log(f"vo (b) {tag} frames: {rec['frames']} frames in {rec['total_s']:.3f} s = "
+            f"{rec['frames_per_sec']:.2f} f/s, ATE {rec['ate_pct_of_trajectory']:.3f}% of the "
+            f"trajectory; stages (s) {json.dumps(stages)}; launches a run "
+            f"{out[tag]['launches_per_run']}; estimate_pairs over {rec['estimate_pairs_pairs']} "
+            f"pairs: {json.dumps(rec['estimate_pairs_dispatch'])}")
+
+    # (c) loops without BA, on the same features
+    zero_counts()
+    feats = slam.frontend_features(frames, vocfg, device=dev)
+    pd = slam.frontend_matches(frames, vocfg, features=feats, device=dev)
+    t0 = time.perf_counter()
+    loops = slam.propose_loop_closures(frames, vocfg, gap=10, top_k=8, features=feats,
+                                       device=dev)
+    propose_s = time.perf_counter() - t0
+    mets, st = [], {}
+    t0 = time.perf_counter()
+    est = slam.run_vo_matches(pd, vocfg, loop_pairs=loops, metrics=mets, stage_times=st,
+                              device=dev)
+    geo_s = time.perf_counter() - t0
+    edges = sum(1 for m in mets if m.get("edge_added"))
+    drift = sum(1 for m in mets if m.get("loop_closure") and m.get("log_drift") is not None)
+    traj = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
+    ate = 100.0 * slam.evaluate_ate(est, gt) / traj
+    check(np.isfinite(est).all(), "vo (c): trajectory with loops is not finite")
+    check(edges >= 1, f"vo (c): no loop edge accepted of {len(loops)} proposed")
+    out["loops"] = {"proposed": len(loops), "accepted": sum(1 for m in mets if m.get("loop_closure")),
+                    "edges": edges, "drift_observations": drift, "ate_pct_of_trajectory": ate,
+                    "propose_s": propose_s, "geometry_s": geo_s, **{f"geo.{k}_s": v for k, v in st.items()},
+                    "launches": counts()}
+    log(f"vo (c): loops without BA: {len(loops)} proposed (gap 10, top 8), "
+        f"{out['loops']['accepted']} accepted, {edges} SE(3) edges, {drift} drift observations; "
+        f"ATE {ate:.3f}% with loops vs {out['host']['ate_pct_of_trajectory']:.3f}% odometry; "
+        f"propose {propose_s:.3f} s, geometry {geo_s:.3f} s, stages (s) {json.dumps(st)}")
+
+    # The path's two kernels against their plain versions at its shapes.
+    def err(a: torch.Tensor, b: torch.Tensor) -> int:
+        torch.cuda.synchronize()
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    stack = torch.from_numpy(np.stack(frames)).to(dev)
+    args = (stack, vocfg.threshold, vocfg.count, NonmaxMode.SUM_ABSOLUTE)
+    (k_mask, k_score), (p_mask, p_score) = fast_cuda.detect_dense(*args), fast.detect_dense(*args)
+    e_d = max(err(k_mask, p_mask), err(k_score, p_score))
+    e_w = err(patch_cuda.extract_windows_fused(stack, feats[0]),
+              patch_cuda.extract_windows_plain(stack, feats[0]))
+    max_err["dense"] = max(max_err["dense"], e_d)
+    max_err["extract_windows"] = max(max_err["extract_windows"], e_w)
+    check(e_d == 0 and e_w == 0, f"vo: at the path's shapes, dense err {e_d}, windows err {e_w}")
+    log(f"vo: kernels vs plain at the path's shapes: fdf_fast_dense on {tuple(stack.shape)} "
+        f"(SumAbsolute, t {vocfg.threshold}, count {vocfg.count}), fdf_extract_windows at "
+        f"{tuple(feats[0].shape[:2])} keypoints, bit-exact")
+
+    # ATE's spread, against which VO_MAX_ATE_PCT's margin is read: other
+    # RANSAC seeds, and seed 0 again (the card's scatter_add_ sums are not
+    # deterministic).
+    spread = {}
+    for seed in (0, 0, 0, 1, 2, 3, 4, 5):
+        est = slam.run_vo_matches(pd, dataclasses.replace(vocfg, seed=seed), device=dev)
+        spread.setdefault(str(seed), []).append(100.0 * slam.evaluate_ate(est, gt) / traj)
+    every = [a for v in spread.values() for a in v]
+    out["ate_spread"] = {"by_seed": spread, "min": min(every), "max": max(every),
+                         "gate": VO_MAX_ATE_PCT}
+    log(f"vo: odometry ATE (% of the trajectory) by RANSAC seed {json.dumps(spread)}; "
+        f"{min(every):.3f}-{max(every):.3f} against the gate {VO_MAX_ATE_PCT}")
     return out
 
 
@@ -746,6 +937,15 @@ def main() -> int:
         "exp_off_byteswar": tool_recs["exp_off_byteswar"],
         "serving_link": tool_recs["serving_bench"][0]}}))
 
+    # -- 3e. the VO main path, counted -------------------------------------
+    def vo_counts() -> dict:
+        return {"fdf_fast_dense": fast_cuda.LAUNCHES["dense"],
+                "fdf_extract_windows": patch_cuda.LAUNCHES["extract_windows"],
+                "fdf_brief_words": brief_cuda.LAUNCHES["brief_words"]}
+
+    vo = vo_phase(dev, zero_counts, vo_counts, max_err)
+    log(json.dumps({"vo": vo}))
+
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
     def device_ms(fn, rounds: int = 20) -> float:
         """Device ms of one call of ``fn``: its launches queued behind a device sleep."""
@@ -1099,6 +1299,10 @@ def main() -> int:
                 "l2_note": "the 16-frame batch (33 MB) may be served from the 50 MB L2 across "
                            "rounds; the 64-frame share (133 MB) is the device-memory share"})
     for row in rows:
+        if row["name"] in vo["host"]["launches_per_run"]:
+            row["vo_launches_per_run"] = vo["host"]["launches_per_run"][row["name"]]
+            row["vo_main_path"] = ("tools.vo_bench odometry, F=64 640x480 K=512 (patched route): "
+                                   "launches a run of frontend_features")
         if row["share_of_bound"] is None:
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
         log(f"kernel {row['name']}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by "

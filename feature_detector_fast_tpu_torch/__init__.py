@@ -18,6 +18,11 @@ It imports neither JAX nor that package.
     row-sharded detection of one frame (``csrc/fast.cu``'s row-shard entry
     points), data-parallel batches and the 3-stage detect → describe →
     match pipeline, all driven by one process
+  * `models.lie`, `models.twoview`, `models.ba`, `models.posegraph`,
+    `models.slam` — the visual-odometry back-end: batched essential RANSAC
+    with per-pair Gauss-Newton, scale chaining, loop closures and the pose
+    graph, in plain PyTorch on the card (``slam.run_vo_images``)
+  * `io.render` — the deterministic synthetic-scene renderer (numpy)
 
 Public API parity with the reference (`src/lib.rs`):
 

@@ -1,0 +1,223 @@
+"""Pose-graph optimization on SE(3): Gauss-Newton with adaptive LM.
+
+Counterpart of ``feature_detector_fast_tpu.models.posegraph``.  N absolute
+poses are constrained by relative-pose measurements on edges; the optimizer
+minimizes sum_e || log(Z_e^-1 T_i^-1 T_j) ||^2_w.
+
+  * fixed-capacity edge tensors with validity bits;
+  * residuals and Jacobians by automatic differentiation of the local
+    parameterization T_i <- exp(delta_i) T_i at delta = 0;
+  * two solvers: dense normal equations (one ``torch.linalg.solve_ex``,
+    which leaves its error check on the device) with a forward-mode
+    Jacobian, and matrix-free conjugate gradient on jvp / vjp products;
+  * the gauge is fixed by masking pose 0's update;
+  * acceptance and the LM schedule are ``torch.where`` on the device: no
+    host check inside the iterations.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.func import jacfwd, jvp, vjp
+
+from ..utils.precision import matmul_highest
+from . import lie
+
+
+class PoseGraph(NamedTuple):
+    """Fixed-capacity pose-graph problem."""
+
+    poses: torch.Tensor  # (N, 4, 4) world_T_body estimates
+    edge_i: torch.Tensor  # (E,) int source pose index
+    edge_j: torch.Tensor  # (E,) int target pose index
+    edge_T: torch.Tensor  # (E, 4, 4) measured T_i^-1 T_j
+    edge_valid: torch.Tensor  # (E,) bool
+    edge_weight: torch.Tensor  # (E,) float residual weight (sqrt information)
+
+
+def edge_residuals(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+    """(E, 6) weighted residuals log(Z^-1 T_i^-1 T_j)."""
+    Ti = poses[g.edge_i]
+    Tj = poses[g.edge_j]
+    rel = lie.se3_inverse(g.edge_T) @ (lie.se3_inverse(Ti) @ Tj)
+    r = lie.se3_log(rel)
+    w = torch.where(g.edge_valid, g.edge_weight, 0.0)
+    return r * w[:, None]
+
+
+def _residual_of_delta(delta: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+    """Residual vector as a function of the stacked local update (N, 6);
+    pose 0 is gauge-fixed (its delta is ignored)."""
+    keep = (torch.arange(delta.shape[0], device=delta.device) > 0)[:, None]
+    poses = lie.se3_exp(torch.where(keep, delta, 0.0)) @ g.poses
+    return edge_residuals(poses, g).reshape(-1)
+
+
+def _normal_system(g: PoseGraph):
+    """(JtJ matvec, Jtr, r2) by jvp / vjp at delta = 0, matrix-free."""
+    zero = g.poses.new_zeros((g.poses.shape[0], 6))
+
+    def f(d):
+        return _residual_of_delta(d, g)
+
+    r0, pullback = vjp(f, zero)
+
+    def jtj_v(v):
+        _, jv = jvp(f, (zero,), (v,))
+        return pullback(jv)[0]
+
+    return jtj_v, pullback(r0)[0], (r0 * r0).sum()
+
+
+def _cg(matvec, b: torch.Tensor, iters: int, damping) -> torch.Tensor:
+    """Plain conjugate gradient on (A + damping I) x = b, a fixed number of
+    iterations (no early exit)."""
+    x = torch.zeros_like(b)
+    r = b
+    p = r
+    rs = (r * r).sum()
+    for _ in range(iters):
+        ap = matvec(p) + damping * p
+        alpha = rs / torch.clamp((p * ap).sum(), min=1e-20)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = (r * r).sum()
+        p = r + rs_new / torch.clamp(rs, min=1e-20) * p
+        rs = rs_new
+    return x
+
+
+@matmul_highest
+def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters: int = 50,
+             damping: float = 1e-6, robust_delta: float = 0.0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Levenberg-style Gauss-Newton.  Returns (poses, per-iteration cost).
+
+    ``robust_delta`` > 0 enables robust IRLS: each iteration reweights edge
+    e by the Cauchy weight s = delta^2 / (delta^2 + ||r_e||^2) of its current
+    residual, while acceptance guards the Geman-McClure cost
+    rho^2 delta^2 / (delta^2 + rho^2), so every accepted step lowers it (the
+    JAX package's form, posegraph.py:150-160).
+
+    Damping is adaptive LM: ``damping`` seeds lambda; a rejected step
+    multiplies it by 8, an accepted one divides it by 3.  Acceptance also
+    needs a finite new cost.  The dense solver's Jacobian is forward mode:
+    reverse mode through se3_log near pi gave NaN in the JAX package."""
+    n = g.poses.shape[0]
+    d2 = robust_delta * robust_delta
+
+    def robust_cost(poses):
+        r = edge_residuals(poses, g)
+        rho2 = (r * r).sum(-1)
+        return (d2 * rho2 / (d2 + rho2)).sum()
+
+    poses = g.poses
+    lam = torch.full((), damping, dtype=g.poses.dtype, device=g.poses.device)
+    costs = []
+    for _ in range(iterations):
+        gg = g._replace(poses=poses)
+        if robust_delta > 0.0:
+            # One evaluation gives both the IRLS weights and the current
+            # robust cost (gg still carries g's weights here).
+            r_cur = edge_residuals(poses, gg)
+            rho2 = (r_cur * r_cur).sum(-1)
+            r2_cur = (d2 * rho2 / (d2 + rho2)).sum()
+            gg = gg._replace(edge_weight=g.edge_weight * (d2 / (d2 + rho2)))
+        if solver == "dense":
+            zero = poses.new_zeros((n, 6))
+            r0 = _residual_of_delta(zero, gg)
+            J = jacfwd(lambda d: _residual_of_delta(d, gg))(zero).reshape(r0.numel(), n * 6)
+            r2 = (r0 * r0).sum()
+            H = J.T @ J + lam * torch.eye(n * 6, dtype=poses.dtype, device=poses.device)
+            delta = -torch.linalg.solve_ex(H, J.T @ r0)[0].reshape(n, 6)
+        else:  # "cg"
+            jtj_v, jtr, r2 = _normal_system(gg)
+            delta = -_cg(jtj_v, jtr, cg_iters, lam)
+        if robust_delta > 0.0:
+            r2 = r2_cur
+        delta[0] = 0.0
+        delta = torch.where(torch.isfinite(delta), delta, 0.0)
+        new_poses = lie.se3_exp(delta) @ poses
+        if robust_delta > 0.0:
+            new_r2 = robust_cost(new_poses)
+        else:
+            new_r = edge_residuals(new_poses, g)
+            new_r2 = (new_r * new_r).sum()
+        better = torch.isfinite(new_r2) & (new_r2 < r2)
+        poses = torch.where(better, new_poses, poses)
+        lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-9), torch.clamp(lam * 8.0, max=1e8))
+        costs.append(torch.where(better, new_r2, r2))
+    return poses, torch.stack(costs)
+
+
+@matmul_highest
+def rotation_average(R: torch.Tensor, edge_i, edge_j, edge_R: torch.Tensor, edge_weight,
+                     iters: int = 8, robust_sigma: float = 0.1) -> torch.Tensor:
+    """Global rotation averaging: refine absolute rotations ``R`` (N, 3, 3)
+    so that Rw_j ~= Rw_i @ edge_R_e over the relative-rotation graph.
+
+    Each iteration linearizes with left-multiplicative so(3) increments
+    (Rw_k <- exp(r_k) Rw_k): the residual v_e = log(Rw_i Re Rw_j^T) moves to
+    first order as v_e + r_i - r_j, so the normal matrix is a weighted graph
+    Laplacian, solved as one (N-1, N-1) system with 3 right-hand sides.
+    Cauchy weights (scale ``robust_sigma``, radians) guard outlier edges.
+    Gauge: r_0 = 0."""
+    n = R.shape[0]
+    dev = R.device
+    ei = torch.as_tensor(edge_i, device=dev).long()
+    ej = torch.as_tensor(edge_j, device=dev).long()
+    ew = torch.as_tensor(edge_weight, dtype=R.dtype, device=dev)
+    edge_R = torch.as_tensor(edge_R, dtype=R.dtype, device=dev)
+    eye = torch.eye(n - 1, dtype=R.dtype, device=dev)
+    Rw = R
+    for _ in range(iters):
+        v = lie.so3_log(Rw[ei] @ edge_R @ Rw[ej].transpose(-1, -2))  # (E, 3)
+        rn2 = (v * v).sum(-1)
+        w = ew / (1.0 + rn2 / (robust_sigma * robust_sigma))
+        w2 = w * w
+        L = R.new_zeros((n, n))
+        L.index_put_((ei, ei), w2, accumulate=True)
+        L.index_put_((ej, ej), w2, accumulate=True)
+        L.index_put_((ei, ej), -w2, accumulate=True)
+        L.index_put_((ej, ei), -w2, accumulate=True)
+        rhs = R.new_zeros((n, 3))
+        rhs.index_add_(0, ej, w2[:, None] * v)
+        rhs.index_add_(0, ei, -w2[:, None] * v)
+        r = torch.linalg.solve_ex(L[1:, 1:] + 1e-9 * eye, rhs[1:])[0]
+        r = torch.cat([R.new_zeros((1, 3)), r])
+        r = torch.where(torch.isfinite(r), r, 0.0)
+        Rw = lie.so3_exp(r) @ Rw
+    return Rw
+
+
+def solve_scale_drift(n: int, con_i, con_j, con_log, con_weight,
+                      smooth_weight: float = 1.0) -> np.ndarray:
+    """Per-segment monocular log scale drift by linear least squares, on the
+    host in float64 (a few hundred rows by n ~ F columns).
+
+    Variables x_k = log of segment k's chain-scale error, k in [0, n).
+    Rows: smoothness x_{k+1} - x_k = 0 (weight ``smooth_weight``),
+    measurements x_{con_i[m]} - x_{con_j[m]} = con_log[m] (weight
+    ``con_weight[m]``), and the gauge x_0 = 0 as a strong prior row.  Returns
+    x (n,), the log correction to divide out of each segment's
+    translation."""
+    con_i = np.asarray(con_i, np.int64)
+    con_j = np.asarray(con_j, np.int64)
+    m = con_i.shape[0]
+    rows = (n - 1) + m + 1
+    A = np.zeros((rows, n))
+    b = np.zeros((rows,))
+    k = np.arange(n - 1)
+    A[k, k + 1] += smooth_weight
+    A[k, k] += -smooth_weight
+    r = n - 1 + np.arange(m)
+    w = np.asarray(con_weight, np.float64)
+    np.add.at(A, (r, con_i), w)
+    np.add.at(A, (r, con_j), -w)
+    b[r] = np.asarray(con_log, np.float64) * w
+    A[rows - 1, 0] = 1e3  # gauge: x_0 = 0
+    x, *_ = np.linalg.lstsq(A, b, rcond=None)
+    return x

@@ -1,0 +1,658 @@
+"""Monocular visual odometry: the odometry and loop-closure path.
+
+Counterpart of ``feature_detector_fast_tpu.models.slam`` (its lines 1-900
+and ``evaluate_ate``)::
+
+    frames -> detect + describe (FAST + BRIEF, one batched call)
+           -> match consecutive pairs (one batched call)
+           -> essential RANSAC + pose recovery + ray depths + per-pair
+              Gauss-Newton refinement for all P pairs at once
+           -> median-depth scale chaining between consecutive pairs
+           -> loop pairs: the same batched estimate, zero-parallax revisits,
+              a linear scale-drift solve, robust loop edges
+           -> pose-graph optimization
+
+Every per-pair estimate of a sequence is one set of batched tensor
+operations over (P, ...) and (P, H, ...) shapes (``estimate_pairs``): no
+Python loop over pairs or hypotheses, one host fetch at the end.
+Cross-pair linking (scale chaining, loop scale, drift) is exact integer
+slot indexing on the host: correspondence slot i of pair k is keypoint slot
+i of frame k, and ``idx_b[k, i]`` is its matched keypoint slot of frame
+k+1.
+
+The RANSAC draws come from a CPU ``torch.Generator`` seeded by
+``config.seed + seed_offset`` (``ransac_draws``) and are moved to the
+device, so the card and the CPU sample the same hypotheses.
+
+Entry points take ``device`` ("cuda", the default, raises without CUDA;
+or "cpu") and ``dtype`` (float32 by default; float64 for parity runs).
+Global bundle adjustment (``ba_refine=True``, ``build_tracks``,
+``refine_with_ba``) is not in the port yet and raises.
+
+Monocular scale is unobservable; trajectories are scored with scale-aligned
+ATE (``evaluate_ate``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..api import _device
+from ..utils.metrics import ate_rmse
+from ..utils.precision import matmul_highest
+from . import ba as ba_lib
+from . import brief, match, posegraph, twoview
+
+
+@dataclasses.dataclass(frozen=True)
+class VOConfig:
+    threshold: int = 16
+    count: int = 9
+    max_keypoints: int = 512
+    camera: twoview.Camera = twoview.Camera(300.0, 300.0, 160.0, 120.0)
+    ransac_hypotheses: int = 256
+    ransac_threshold: float = 1e-4
+    pose_graph_iters: int = 10
+    #: Geman-McClure scale (se3-log units) of pose-graph edges when loop
+    #: closures are present: a confidently wrong loop hypothesis must lose
+    #: its influence past this residual norm.
+    loop_robust_delta: float = 0.25
+    #: Pose-graph iterations when loop closures are present.
+    loop_pose_graph_iters: int = 40
+    #: Largest median absolute deviation of a loop pair's log depth ratios
+    #: before the hypothesis is dropped.
+    loop_ratio_mad_max: float = 0.3
+    #: Pose-graph weight of loop edges relative to odometry edges.
+    loop_edge_weight: float = 1.0
+    #: Loop pairs closer than this many frames give only their scale-drift
+    #: observation, not an SE(3) edge.
+    loop_edge_min_gap: int = 0
+    #: Median rotation-compensated disparity below which a loop pair is a
+    #: zero-parallax revisit: its SE(3) measurement is [R | 0].
+    revisit_disparity_max: float = 4e-3
+    #: Per-pair Gauss-Newton refinement iterations (a two-camera bundle
+    #: adjustment in the same batched estimate; 0 disables) and CG steps.
+    pair_refine_iters: int = 6
+    pair_refine_cg: int = 12
+    seed: int = 0
+    #: > 1 detects and describes over a dyadic pyramid
+    #: (``pyramid.detect_and_describe_multiscale``), max_keypoints //
+    #: pyramid_levels slots a level.
+    pyramid_levels: int = 1
+
+
+def vo_config_from(obj) -> VOConfig:
+    """The port's VOConfig from any object with the reference's fields (a
+    JAX ``VOConfig``) or a dict; fields it lacks keep their defaults."""
+    get = (obj.get if isinstance(obj, dict)
+           else lambda k, default=None: getattr(obj, k, default))
+    kw = {}
+    for f in dataclasses.fields(VOConfig):
+        v = get(f.name, None)
+        if v is not None:
+            kw[f.name] = twoview.camera_from(v) if f.name == "camera" else type(f.default)(v)
+    return VOConfig(**kw)
+
+
+class PairBatch(NamedTuple):
+    """Fixed-capacity correspondence batch for P frame pairs: slot i of pair
+    k is keypoint slot i of the pair's first frame; ``idx_b[k, i]`` is the
+    matched keypoint slot of its second frame (-1 where unmatched).
+    Synthetic inputs whose slot is a landmark id use the identity."""
+
+    pa: np.ndarray  # (P, K, 2) normalized coordinates in the first frame
+    pb: np.ndarray  # (P, K, 2) normalized coordinates in the second frame
+    valid: np.ndarray  # (P, K) bool
+    idx_b: np.ndarray  # (P, K) int32 second-frame keypoint slot, -1 invalid
+
+
+class PairEstimates(NamedTuple):
+    """Per-pair geometry of one batched estimate (host numpy).  Convention:
+    x_b = R x_a + t_unit, so cam_b_T_cam_a = [R | t_unit * scale] once a
+    scale is chained on."""
+
+    R: np.ndarray  # (P, 3, 3)
+    t_unit: np.ndarray  # (P, 3)
+    inl: np.ndarray  # (P, K) bool RANSAC inliers
+    depths_a: np.ndarray  # (P, K) depth in the first frame
+    depths_b: np.ndarray  # (P, K) the same points' depth in the second frame
+
+
+def _as_pair_batch(pair_data: Sequence[Tuple[np.ndarray, ...]]) -> PairBatch:
+    """A list of (pa, pb, valid[, idx_b]) tuples as a padded PairBatch; a
+    missing idx_b is the identity slot mapping."""
+    kmax = max(np.asarray(t[0]).shape[0] for t in pair_data)
+    p = len(pair_data)
+    pa = np.zeros((p, kmax, 2), np.asarray(pair_data[0][0]).dtype)
+    pb = np.zeros_like(pa)
+    valid = np.zeros((p, kmax), bool)
+    idx_b = np.full((p, kmax), -1, np.int32)
+    for k, entry in enumerate(pair_data):
+        a, b, v = (np.asarray(x) for x in entry[:3])
+        n = a.shape[0]
+        pa[k, :n] = a
+        pb[k, :n] = b
+        valid[k, :n] = v
+        if len(entry) > 3:
+            idx_b[k, :n] = np.asarray(entry[3], np.int32)
+        else:
+            idx_b[k, :n] = np.arange(n, dtype=np.int32)
+        idx_b[k, :n] = np.where(valid[k, :n], idx_b[k, :n], -1)
+    return PairBatch(pa, pb, valid, idx_b)
+
+
+def ransac_draws(seed: int, pairs: int, hypotheses: int, slots: int) -> torch.Tensor:
+    """(pairs, hypotheses, slots) float32 uniform draws on the CPU from a
+    ``torch.Generator`` seeded by ``seed``: the same draws whatever device
+    the estimate runs on."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.rand((pairs, hypotheses, slots), generator=gen)
+
+
+@matmul_highest
+def _estimate_pairs_device(pa, pb, valid, draws, threshold, refine_iters=0, refine_cg=12):
+    """Essential RANSAC + pose recovery + ray depths, plus with
+    ``refine_iters`` > 0 a two-camera Gauss-Newton reprojection refinement,
+    for a (P, K, 2) batch: the whole sequence's two-view geometry as one
+    set of batched operations."""
+    E, inl = twoview.ransac_essential(pa, pb, valid, draws, threshold)
+    R, t, _ = twoview.recover_pose(E, pa, pb, inl)
+    za, zb = twoview.ray_depths(R, t, pa, pb)
+    if refine_iters > 0:
+        # Two-camera BA on the RANSAC inliers: world = camera a; camera b's
+        # 6 dof and the inlier structure are free.  Invalid slots get a
+        # benign placeholder point; their residuals are masked.
+        p, k = pa.shape[:2]
+        X = twoview._homogeneous(pa) * za[..., None]  # frame-a (world) landmarks
+        ok = inl & (za > 1e-6) & torch.isfinite(za)
+        Xs = torch.where(ok[..., None], X, torch.eye(3, dtype=X.dtype, device=X.device)[2])
+        eye = torch.eye(4, dtype=pa.dtype, device=pa.device).expand(p, 4, 4)
+        Tb = eye.clone()
+        Tb[:, :3, :3] = R
+        Tb[:, :3, 3] = t
+        idx = torch.arange(k, device=pa.device)
+        prob = ba_lib.BAProblem(
+            poses=torch.stack([eye, Tb], dim=1),
+            points=Xs,
+            obs_cam=torch.cat([torch.zeros_like(idx), torch.ones_like(idx)]),
+            obs_lm=torch.cat([idx, idx]),
+            obs_uv=torch.cat([pa, pb], dim=1),
+            obs_valid=torch.cat([ok, ok], dim=1),
+            n_fixed_cams=1,
+        )
+        newp, _, _ = ba_lib.optimize(prob, refine_iters, refine_cg, 1e-6, 0.0)
+        R = newp[:, 1, :3, :3]
+        t = newp[:, 1, :3, 3]
+        t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+        za, zb = twoview.ray_depths(R, t, pa, pb)
+    return R, t, inl, za, zb
+
+
+def estimate_pairs(batch: PairBatch, config: VOConfig, seed_offset: int = 0,
+                   draws: Optional[torch.Tensor] = None, *, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> PairEstimates:
+    """Batched two-view estimation of all P pairs, one host fetch.
+
+    ``draws`` (P, H, K) overrides the RANSAC draws (default
+    ``ransac_draws(config.seed + seed_offset, P, H, K)``): the two-phase loop
+    estimate refits a subset of pairs with the selected rows of the same
+    draws.  ``dtype`` defaults to the batch's."""
+    dev = _device(device)
+    p, k = batch.valid.shape
+    if draws is None:
+        draws = ransac_draws(config.seed + seed_offset, p, config.ransac_hypotheses, k)
+    dtype = dtype or torch.as_tensor(batch.pa).dtype
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(x).to(device=dev, dtype=dt)
+
+    R, t, inl, za, zb = _estimate_pairs_device(
+        put(batch.pa), put(batch.pb), put(batch.valid, torch.bool), put(draws, draws.dtype),
+        config.ransac_threshold, int(config.pair_refine_iters), int(config.pair_refine_cg))
+    host = torch.cat([R.reshape(p, 9), t, inl.to(R.dtype), za, zb], dim=1).cpu().numpy()
+    return PairEstimates(host[:, :9].reshape(p, 3, 3), host[:, 9:12],
+                         host[:, 12:12 + k] > 0.5, host[:, 12 + k:12 + 2 * k],
+                         host[:, 12 + 2 * k:])
+
+
+@contextlib.contextmanager
+def _staged(times: Optional[dict], name: str):
+    """Add the wall seconds of the enclosed stage to ``times[name]`` (no-op
+    when ``times`` is None).  Stages end with a host fetch of their device
+    results, so a stage's time is launch + compute + readback."""
+    if times is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _scatter_rows(dst: np.ndarray, idx: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Copy of ``dst`` with ``dst[idx] = rows``."""
+    out = np.array(dst)
+    out[idx] = rows
+    return out
+
+
+def _chain_scales(est: PairEstimates, idx_b: np.ndarray) -> np.ndarray:
+    """Propagate monocular scale between consecutive pair estimates: a point
+    inlying in pairs k-1 and k is linked exactly through the shared frame
+    (pair k-1's slot i is frame-k keypoint slot idx_b[k-1, i], pair k's
+    slot), so the median ratio of its two depths in frame k fixes the
+    relative scale.  The first pair defines scale 1."""
+    p, k_cap = est.inl.shape
+    scales = np.ones(p)
+    for k in range(1, p):
+        m_prev = est.inl[k - 1] & (idx_b[k - 1] >= 0) & (est.depths_b[k - 1] > 1e-6)
+        shared = np.full(k_cap, np.nan)
+        shared[idx_b[k - 1, m_prev]] = est.depths_b[k - 1, m_prev]
+        m_cur = est.inl[k] & (est.depths_a[k] > 1e-6)
+        d_prev = shared[np.arange(k_cap)[m_cur]]
+        d_cur = est.depths_a[k, m_cur]
+        ok = np.isfinite(d_prev) & (d_prev > 1e-6)
+        ratio = float(np.median(d_prev[ok] / d_cur[ok])) if ok.any() else 1.0
+        scales[k] = scales[k - 1] * ratio
+    return scales
+
+
+def _fit_loop_batch(lbatch: PairBatch, k_cap: int) -> PairBatch:
+    """The loop batch at the main batch's slot capacity: padded, or
+    truncated (loop slots beyond it cannot link against the chain's
+    depths)."""
+    extra = k_cap - lbatch.pa.shape[1]
+    if extra > 0:
+        return PairBatch(np.pad(lbatch.pa, ((0, 0), (0, extra), (0, 0))),
+                         np.pad(lbatch.pb, ((0, 0), (0, extra), (0, 0))),
+                         np.pad(lbatch.valid, ((0, 0), (0, extra))),
+                         np.pad(lbatch.idx_b, ((0, 0), (0, extra)), constant_values=-1))
+    return PairBatch(lbatch.pa[:, :k_cap], lbatch.pb[:, :k_cap], lbatch.valid[:, :k_cap],
+                     lbatch.idx_b[:, :k_cap])
+
+
+def _no_global_ba():
+    raise NotImplementedError(
+        "ba_refine=True needs refine_with_ba, which the port does not have yet: ROADMAP.md "
+        "queue 1, the next slice (build_tracks / triangulate_tracks / refine_with_ba with "
+        "windowed_ba)")
+
+
+def run_vo_matches(
+    pair_data: Sequence[Tuple[np.ndarray, ...]],
+    config: VOConfig,
+    loop_pairs: Optional[Sequence[Tuple]] = None,
+    metrics: Optional[list] = None,
+    ba_refine: bool = False,
+    stage_times: Optional[dict] = None,
+    *,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> np.ndarray:
+    """Geometric VO from per-pair normalized correspondences.
+
+    pair_data[k] = (pa, pb, valid[, idx_b]) for frames (k, k+1), in
+    normalized camera coordinates.  ``loop_pairs`` optionally adds
+    non-consecutive constraints (i, j, pa, pb, valid[, idx_b]), whose slots
+    are frame-i keypoint slots so their scale links against pair i's
+    depths.  Returns (F, 4, 4) world_T_cam poses (frame 0 at the identity)
+    after pose-graph optimization, in ``dtype``.  ``metrics``, if given,
+    gets one dict per pair and per accepted loop.  ``ba_refine=True``
+    raises: global bundle adjustment is not in the port yet."""
+    if ba_refine:
+        _no_global_ba()
+    if len(pair_data) == 0:
+        return np.eye(4)[None]
+    dev = _device(device)
+    batch = _as_pair_batch(pair_data)
+    with _staged(stage_times, "odom_estimate_pairs"):
+        est = estimate_pairs(batch, config, device=dev, dtype=dtype)
+    if metrics is not None:
+        for k in range(batch.pa.shape[0]):
+            metrics.append({"pair": (k, k + 1), "matches": int(batch.valid[k].sum()),
+                            "inliers": int(est.inl[k].sum())})
+
+    scales = _chain_scales(est, batch.idx_b)
+
+    # integrate odometry, world frame = camera 0:
+    # world_T_cam_{k+1} = world_T_cam_k @ inv([R | s t])
+    p = batch.pa.shape[0]
+    n = p + 1
+    poses = [np.eye(4)]
+    rels = []
+    for k in range(p):
+        Tba = np.eye(4)
+        Tba[:3, :3] = est.R[k]
+        Tba[:3, 3] = est.t_unit[k] * scales[k]
+        rel = np.linalg.inv(Tba)  # cam_k_T_cam_{k+1}
+        rels.append(rel)
+        poses.append(poses[-1] @ rel)
+    poses = np.stack(poses)
+
+    edge_i = list(range(n - 1))
+    edge_j = list(range(1, n))
+    edge_T = list(rels)
+    edge_w = [1.0] * (n - 1)
+
+    # Loop-closure edges: all loop pairs in one more batched estimate; each
+    # recovers its scale against pair i's chained depths by slot index, and
+    # with a sixth element idx_b also observes the relative scale drift
+    # between segments i and j, divided out of the chain by a linear solve
+    # before the pose graph runs.
+    if loop_pairs:
+        k_cap = batch.pa.shape[1]
+        lbatch = _as_pair_batch([e[2:] for e in loop_pairs])
+        if lbatch.pa.shape[1] != k_cap:
+            lbatch = _fit_loop_batch(lbatch, k_cap)
+        # Two-phase loop estimation: RANSAC without the per-pair refinement
+        # over every candidate, then a refined re-estimate of only the pairs
+        # that become graph edges (far gap, enough inliers), each with its
+        # own rows of the same draws.
+        ldraws = ransac_draws(config.seed + 1, lbatch.pa.shape[0], config.ransac_hypotheses,
+                              k_cap)
+        cfg_fast = dataclasses.replace(config, pair_refine_iters=0)
+        with _staged(stage_times, "loop_ransac"):
+            lest = estimate_pairs(lbatch, cfg_fast, draws=ldraws, device=dev, dtype=dtype)
+        if config.pair_refine_iters > 0:
+            gaps = np.asarray([int(e[1]) - int(e[0]) for e in loop_pairs])
+            need = (gaps >= config.loop_edge_min_gap) & (lest.inl.sum(axis=1) >= 16)
+            sel = np.nonzero(need)[0]
+            if sel.size:
+                sub = PairBatch(lbatch.pa[sel], lbatch.pb[sel], lbatch.valid[sel],
+                                lbatch.idx_b[sel])
+                with _staged(stage_times, "loop_refine"):
+                    rsub = estimate_pairs(sub, config, draws=ldraws[torch.from_numpy(sel)],
+                                          device=dev, dtype=dtype)
+                lest = PairEstimates(*(_scatter_rows(a, sel, b) for a, b in zip(lest, rsub)))
+
+        def chain_depth_table(f: int) -> Tuple[np.ndarray, int]:
+            """(chain-unit depth per frame-f slot, segment whose scale error
+            it carries): from pair f when it exists, else pair f-1's
+            second-frame depths remapped through its idx_b."""
+            tbl = np.full(k_cap, np.nan)
+            if f < p:
+                m = est.inl[f] & (est.depths_a[f] > 1e-6)
+                tbl[m] = est.depths_a[f, m] * scales[f]
+                return tbl, f
+            m = est.inl[f - 1] & (batch.idx_b[f - 1] >= 0) & (est.depths_b[f - 1] > 1e-6)
+            tbl[batch.idx_b[f - 1, m]] = est.depths_b[f - 1, m] * scales[f - 1]
+            return tbl, f - 1
+
+        accepted = []  # (i, j, li, r_i, seg_j or None, log_drift or None)
+        t_accept0 = time.perf_counter()
+        for li, entry in enumerate(loop_pairs):
+            i, j = int(entry[0]), int(entry[1])
+            n_inl = int(lest.inl[li].sum())
+            if n_inl < 16 or i >= p:
+                continue
+            # Zero-parallax revisit: a coincident-camera pair breaks
+            # essential RANSAC (any skew E scores every correspondence), so
+            # the revisit test fits its own rotation (Kabsch on the matched
+            # unit rays) and gates on the median R-compensated disparity.
+            # Below the gate the SE(3) measurement is [R_kabsch | 0] and the
+            # drift observation is the direct chain-depth ratio.
+            minl = lest.inl[li] & lbatch.valid[li]
+            qa3 = np.concatenate([lbatch.pa[li], np.ones((k_cap, 1), lbatch.pa.dtype)], 1)
+            qb3 = np.concatenate([lbatch.pb[li], np.ones((k_cap, 1), lbatch.pb.dtype)], 1)
+            qa3 = qa3 / np.linalg.norm(qa3, axis=1, keepdims=True)
+            qb3 = qb3 / np.linalg.norm(qb3, axis=1, keepdims=True)
+            B = (qb3 * minl[:, None]).T @ qa3  # sum over inliers of qb qa^T
+            U, _, Vt = np.linalg.svd(B)
+            R_rv = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+            disp = np.linalg.norm(np.cross(qa3 @ R_rv.T, qb3), axis=1)
+            d_med = float(np.median(disp[minl])) if minl.any() else np.inf
+            if d_med < config.revisit_disparity_max:
+                seg_j = log_drift = None
+                lidx = lbatch.idx_b[li]
+                tbl_j, seg = chain_depth_table(j)
+                m3 = (est.inl[i] & lest.inl[li] & (lidx >= 0) & (lidx < k_cap)
+                      & (est.depths_a[i] > 1e-6))
+                if len(entry) <= 5:
+                    m3 = np.zeros_like(m3)
+                d_i = est.depths_a[i] * scales[i]
+                d_j = np.where(m3, tbl_j[np.clip(lidx, 0, k_cap - 1)], np.nan)
+                lrv = np.log(np.abs(d_i / d_j))
+                ok3 = m3 & np.isfinite(lrv) & (d_j > 1e-6)
+                if ok3.sum() >= 8:
+                    med = float(np.median(lrv[ok3]))
+                    if float(np.median(np.abs(lrv[ok3] - med))) <= config.loop_ratio_mad_max:
+                        seg_j = seg
+                        log_drift = med
+                accepted.append((i, j, li, (0.0, R_rv), seg_j, log_drift))
+                continue
+            # frame-i depths from the odometry chain, at chained scale
+            m = (est.inl[i] & lest.inl[li] & (est.depths_a[i] > 1e-6)
+                 & (lest.depths_a[li] > 1e-6))
+            if m.sum() < 8:
+                continue
+            lr = np.log(est.depths_a[i, m] * scales[i] / lest.depths_a[li, m])
+            mad = float(np.median(np.abs(lr - np.median(lr))))
+            if mad > config.loop_ratio_mad_max:
+                # dispersed depth ratios: the pair's geometry disagrees with
+                # the chain; drop the hypothesis
+                continue
+            r_i = float(np.exp(np.median(lr)))
+            # The drift observation r_i / r_j needs frame-j chain depths
+            # linked through the loop's real idx_b: a 5-tuple has none (the
+            # batch's identity mapping would pair unrelated slots), and
+            # slots beyond the main batch's capacity are masked out.
+            seg_j = log_drift = None
+            lidx = lbatch.idx_b[li]
+            tbl_j, seg = chain_depth_table(j)
+            m2 = lest.inl[li] & (lidx >= 0) & (lidx < k_cap) & (lest.depths_b[li] > 1e-6)
+            if len(entry) <= 5:
+                m2 = np.zeros_like(m2)
+            d_chain_j = np.where(m2, tbl_j[np.clip(lidx, 0, k_cap - 1)], np.nan)
+            ok2 = np.isfinite(d_chain_j) & m2
+            if ok2.sum() >= 8:
+                lrj = np.log(d_chain_j[ok2] / lest.depths_b[li, ok2])
+                if float(np.median(np.abs(lrj - np.median(lrj)))) <= config.loop_ratio_mad_max:
+                    r_j = float(np.exp(np.median(lrj)))
+                    seg_j = seg
+                    log_drift = float(np.log(r_i / r_j))
+            accepted.append((i, j, li, r_i, seg_j, log_drift))
+
+        if stage_times is not None:
+            stage_times["loop_accept_host"] = (stage_times.get("loop_accept_host", 0.0)
+                                               + time.perf_counter() - t_accept0)
+
+        # Per-segment scale-drift correction from the loops' relative drift
+        # observations (linear least squares; segment 0 is the gauge).
+        c = np.ones(p)
+        cons = [(i, sj, ld) for (i, _, _, _, sj, ld) in accepted if sj is not None and i != sj]
+        if cons:
+            with _staged(stage_times, "scale_drift"):
+                log_c = posegraph.solve_scale_drift(
+                    p, np.array([x[0] for x in cons], np.int32),
+                    np.array([x[1] for x in cons], np.int32), np.array([x[2] for x in cons]),
+                    np.ones(len(cons)))
+            c = np.exp(log_c)
+            # re-integrate the chain with the drift divided out
+            poses = [np.eye(4)]
+            for k in range(p):
+                rel = rels[k].copy()
+                rel[:3, 3] = rel[:3, 3] / c[k]
+                rels[k] = rel
+                edge_T[k] = rel
+                poses.append(poses[-1] @ rel)
+            poses = np.stack(poses)
+
+        for (i, j, li, r_i, seg_j, log_drift) in accepted:
+            if j - i < config.loop_edge_min_gap:
+                # no SE(3) edge, but its drift observation entered the solve
+                if metrics is not None:
+                    metrics.append({"pair": (i, j), "loop_closure": True, "edge_added": False,
+                                    "matches": int(lbatch.valid[li].sum()),
+                                    "inliers": int(lest.inl[li].sum()), "log_drift": log_drift})
+                continue
+            if isinstance(r_i, tuple):
+                # zero-parallax revisit: Kabsch rotation, zero translation
+                s_loop = 0.0
+                R_edge = r_i[1]
+            else:
+                s_loop = r_i / c[i]
+                R_edge = lest.R[li]
+            Tji = np.eye(4)
+            Tji[:3, :3] = R_edge
+            Tji[:3, 3] = lest.t_unit[li] * s_loop
+            edge_i.append(i)
+            edge_j.append(j)
+            edge_T.append(np.linalg.inv(Tji))  # measured T_i^-1 T_j
+            edge_w.append(config.loop_edge_weight)
+            if metrics is not None:
+                metrics.append({"pair": (i, j), "loop_closure": True, "edge_added": True,
+                                "matches": int(lbatch.valid[li].sum()),
+                                "inliers": int(lest.inl[li].sum()), "scale": s_loop,
+                                "log_drift": log_drift})
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
+
+    g = posegraph.PoseGraph(
+        poses=put(poses), edge_i=put(edge_i, torch.int64), edge_j=put(edge_j, torch.int64),
+        edge_T=put(np.stack(edge_T)), edge_valid=torch.ones(len(edge_i), dtype=torch.bool,
+                                                            device=dev),
+        edge_weight=put(edge_w))
+    has_loops = len(edge_i) > n - 1
+    with _staged(stage_times, "pose_graph"):
+        opt_poses, _ = posegraph.optimize(
+            g, config.loop_pose_graph_iters if has_loops else config.pose_graph_iters, "dense",
+            robust_delta=config.loop_robust_delta if has_loops else 0.0)
+        return opt_poses.cpu().numpy()
+
+
+def frontend_features(frames, config: VOConfig, *, device="cuda"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Detect and describe every frame in one batched call; returns
+    device-resident (xy (F, K, 2) int32, desc (F, K, WORDS) int32, dvalid (F,
+    K) bool).  Compute it once a sequence and pass it to both
+    ``frontend_matches`` and ``propose_loop_closures``.  ``frames`` is a list
+    of (H, W) u8 frames or an (F, H, W) u8 tensor already on the device."""
+    stack = frames if isinstance(frames, torch.Tensor) else np.stack(frames)
+    if config.pyramid_levels > 1:
+        from . import pyramid
+
+        k_per = max(1, config.max_keypoints // config.pyramid_levels)
+        feats = [pyramid.detect_and_describe_multiscale(
+            im, config.threshold, config.count, k_per, n_levels=config.pyramid_levels,
+            device=device) for im in stack]
+        return tuple(torch.stack([getattr(f, name) for f in feats])
+                     for name in ("xy0", "desc", "valid"))
+    kps, desc, dvalid = brief.detect_and_describe_batch(
+        stack, config.threshold, config.count, config.max_keypoints, device=device)
+    return kps.xy, desc, dvalid
+
+
+def _match_normalized(config: VOConfig, xy_a, desc_a, valid_a, xy_b, desc_b, valid_b):
+    """Batched matching of frame pairs: (pa, pb) normalized float32, ok and
+    idx_b, on the device."""
+    m = match.match(desc_a, valid_a, desc_b, valid_b)
+    pa, pb, ok = match.match_points(xy_a, xy_b, m)
+    return (twoview.normalize_points(pa.to(torch.float32), config.camera),
+            twoview.normalize_points(pb.to(torch.float32), config.camera), ok, m.idx_b)
+
+
+def _to_host(na, nb, ok, idx):
+    """One device -> host copy of a matched batch."""
+    packed = torch.cat([na, nb, ok[..., None].to(na.dtype), idx[..., None].to(na.dtype)], -1)
+    host = packed.cpu().numpy()
+    return (host[..., 0:2], host[..., 2:4], host[..., 4] > 0.5,
+            host[..., 5].astype(np.int32))
+
+
+def frontend_matches(frames, config: VOConfig, features=None, *, device="cuda"
+                     ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+    """Per consecutive pair (pa, pb, valid, idx_b) in normalized camera
+    coordinates: slot i is frame k's keypoint slot i, idx_b its matched
+    keypoint slot of frame k+1.  One batched match of all pairs, one host
+    copy.  ``features`` is ``frontend_features``' output, to reuse."""
+    xy, desc, dvalid = features if features is not None else frontend_features(
+        frames, config, device=device)
+    na, nb, ok, idx = _to_host(*_match_normalized(config, xy[:-1], desc[:-1], dvalid[:-1],
+                                                  xy[1:], desc[1:], dvalid[1:]))
+    return [(na[k], nb[k], ok[k], idx[k]) for k in range(len(frames) - 1)]
+
+
+def _frame_signatures(desc: torch.Tensor, dvalid: torch.Tensor) -> torch.Tensor:
+    """Pooled per-frame descriptor signature: the mean of each BRIEF bit
+    over the frame's valid keypoints, an (F, 256) float "bag of bits"."""
+    f, k, w = desc.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    bits = ((desc.to(torch.int32)[..., None] >> shifts) & 1).to(torch.float32)
+    bits = bits.reshape(f, k, w * 32)
+    wgt = dvalid.to(torch.float32)
+    s = (bits * wgt[..., None]).sum(1)
+    return s / torch.clamp(wgt.sum(1), min=1.0)[..., None]
+
+
+def propose_loop_closures(frames, config: VOConfig, gap: int = 5, min_matches: int = 60,
+                          chunk: int = 128, top_k: Optional[int] = None, features=None, *,
+                          device="cuda") -> List[Tuple]:
+    """Descriptor-based loop-closure candidates: frame pairs at least ``gap``
+    apart, matched in batched chunks of ``chunk`` pairs (the (C, K, K)
+    distance matrices grow with K^2); pairs with at least ``min_matches``
+    mutual matches become (i, j, pa, pb, valid, idx_b) constraints for
+    ``run_vo_matches``, with frame-i keypoint slots.
+
+    ``top_k`` gates the O(F^2) enumeration by frame signatures: frame i
+    matches only its ``top_k`` most signature-similar partners j >= i + gap.
+    None is exhaustive up to 64 frames and 8 beyond; 0 forces exhaustive."""
+    f = len(frames)
+    if top_k is None:
+        top_k = 0 if f <= 64 else 8
+    xy, desc, dvalid = features if features is not None else frontend_features(
+        frames, config, device=device)
+    if top_k:
+        sig = _frame_signatures(desc, dvalid).cpu().numpy()
+        sig = sig - sig.mean(axis=0)  # centre: shared-background bits
+        nrm = np.linalg.norm(sig, axis=1)
+        sim = (sig @ sig.T) / np.maximum(np.outer(nrm, nrm), 1e-9)
+        cand = []
+        for i in range(f):
+            js = np.arange(i + gap, f)
+            if js.size == 0:
+                continue
+            order = js[np.argsort(-sim[i, js])][: int(top_k)]
+            cand.extend((i, int(j)) for j in np.sort(order))
+    else:
+        cand = [(i, j) for i in range(f) for j in range(i + gap, f)]
+    if not cand:
+        return []
+    ii = torch.as_tensor([c[0] for c in cand], device=xy.device)
+    jj = torch.as_tensor([c[1] for c in cand], device=xy.device)
+    parts = []
+    for s in range(0, len(cand), chunk):
+        a, b = ii[s:s + chunk], jj[s:s + chunk]
+        parts.append(_match_normalized(config, xy[a], desc[a], dvalid[a], xy[b], desc[b],
+                                       dvalid[b]))
+    na, nb, ok, idx = _to_host(*(torch.cat(x) for x in zip(*parts)))
+    counts = ok.sum(axis=1)
+    return [(cand[c][0], cand[c][1], na[c], nb[c], ok[c], idx[c])
+            for c in range(len(cand)) if counts[c] >= min_matches]
+
+
+def run_vo_images(frames, config: VOConfig, *, loop_closure_gap: Optional[int] = None,
+                  metrics: Optional[list] = None, ba_refine: bool = False, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Images -> trajectory (F, 4, 4).  With ``loop_closure_gap``, distant
+    frame pairs are matched and added as pose-graph constraints.  Frames are
+    detected and described once; the features feed both consecutive-pair
+    matching and loop proposal."""
+    if ba_refine:
+        _no_global_ba()
+    feats = frontend_features(frames, config, device=device)
+    loops = (propose_loop_closures(frames, config, gap=loop_closure_gap, features=feats)
+             if loop_closure_gap else None)
+    return run_vo_matches(frontend_matches(frames, config, features=feats), config,
+                          loop_pairs=loops, metrics=metrics, ba_refine=ba_refine,
+                          device=device, dtype=dtype)
+
+
+def evaluate_ate(est_poses: np.ndarray, gt_poses: np.ndarray) -> float:
+    """Scale-aligned ATE RMSE between world_T_cam trajectories."""
+    return ate_rmse(est_poses[:, :3, 3], gt_poses[:, :3, 3], align=True, with_scale=True)

@@ -11,7 +11,9 @@ card (``nvidia-smi`` name and power limit) on stderr:
 * ``resolution_bench``, ``sweep``, ``serving_bench``, ``frontend_bench``,
   ``scaling_bench`` -- the measurement tools of the same names;
 * ``exp_off_floor``, ``exp_off_prepack``, ``exp_off_byteswar`` -- the OFF
-  words kernel's floors and variants, on the kernels of ``csrc/exp_off.cu``.
+  words kernel's floors and variants, on the kernels of ``csrc/exp_off.cu``;
+* ``vo_bench`` -- full visual odometry (rendered VGA circuit, K=512) in
+  frames/s and ATE, host and device-resident frames.
 
 The default device is ``"cuda"``, which raises without CUDA; ``"cpu"`` runs
 the plain PyTorch versions at whatever size is asked (the tests use tiny

@@ -362,6 +362,56 @@ def same_loop_ms(fns: Dict[str, Callable], device: torch.device, *, rounds: int,
     return {name: float(np.mean(t)) for name, t in times.items()}
 
 
+def dispatch_counts(fn: Callable, device: torch.device) -> dict:
+    """What one call of ``fn`` asks of the card: ``kernels`` launched (device
+    events of ``torch.profiler`` other than copies and sets), ``copies``
+    (memcpy / memset events), ``launch_calls`` (the host's kernel-launch API
+    calls), host ``syncs`` (the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, one a synchronizing call),
+    ``device_ms`` (the device events' summed durations) and ``wall_ms`` (one
+    call without the profiler, by the host clock up to a device
+    synchronisation), so ``1 - device_ms / wall_ms`` is the device's idle
+    share.  Each count is null where its source recorded nothing, and all
+    are null on the CPU."""
+    keys = ("kernels", "copies", "launch_calls", "syncs", "device_ms", "wall_ms")
+    if device.type != "cuda":
+        return dict.fromkeys(keys)
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    kernels = copies = launches = 0
+    device_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.time_range.elapsed_us()
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+        elif "LaunchKernel" in e.name:
+            launches += 1
+    return {"kernels": kernels or None, "copies": copies if kernels else None,
+            "launch_calls": launches or None, "syncs": syncs,
+            "device_ms": device_us / 1e3 if kernels else None, "wall_ms": wall_ms}
+
+
 def tiled(base: np.ndarray, h: int, w: int) -> np.ndarray:
     """An h x w frame tiled from ``base`` (its corner statistics kept)."""
     return np.tile(base, (-(-h // base.shape[0]), -(-w // base.shape[1])))[:h, :w].copy()

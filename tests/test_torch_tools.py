@@ -25,13 +25,13 @@ from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
 from feature_detector_fast_tpu_torch.ops import fast as fast_ops
 from feature_detector_fast_tpu_torch.tools import (
     _common, acceptance, descriptor_bench, exp_off_byteswar, exp_off_floor, exp_off_prepack,
-    fast_bench, frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep)
+    fast_bench, frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep, vo_bench)
 from feature_detector_fast_tpu_torch.utils.image import load_luma8, save_image
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 TOOLS = ("acceptance", "descriptor_bench", "exp_off_byteswar", "exp_off_floor",
          "exp_off_prepack", "fast_bench", "frontend_bench", "resolution_bench", "scaling_bench",
-         "serving_bench", "sweep")
+         "serving_bench", "sweep", "vo_bench")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,18 +259,23 @@ def test_tools_default_to_cuda():
     """Without CUDA a tool's default device raises: no silent CPU run."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default device works here")
-    for run in (sweep.run, exp_off_floor.run, acceptance.run, scaling_bench.run):
+    for run in (sweep.run, exp_off_floor.run, acceptance.run, scaling_bench.run, vo_bench.run):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             next(run())
 
 
 def test_tools_import_no_jax():
-    """The tools import neither JAX nor the JAX package (checked in a fresh
-    interpreter, as the port's own modules are in tests/test_torch_api.py)."""
+    """The tools and the VO back-end (models lie, twoview, ba, posegraph,
+    slam; utils metrics, precision; io render) import neither JAX nor the
+    JAX package (checked in a fresh interpreter, as the port's own modules
+    are in tests/test_torch_api.py)."""
     code = (
         "import sys\n"
         + "".join(f"import feature_detector_fast_tpu_torch.tools.{t}\n" for t in TOOLS)
         + "from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda\n"
+        "from feature_detector_fast_tpu_torch.models import ba, lie, posegraph, slam, twoview\n"
+        "from feature_detector_fast_tpu_torch.utils import metrics, precision\n"
+        "from feature_detector_fast_tpu_torch.io import render\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'feature_detector_fast_tpu', 'bench')]\n"
         "assert not bad, bad\n"
@@ -450,3 +455,25 @@ def test_window_bounds_count_covered_pixels():
     assert b["bytes"] == covered + 4 * 8 + 4 * 31 * 31 * 4 and b["bound_by"] == "bytes"
     p = _common.extract_patches_bound(xy, 200, 300)
     assert p["int_ops"] == 0 and p["bytes"] > 4 * 32 * 128 * 4
+
+
+def test_vo_bench_records():
+    """vo_bench at 4 frames of 160 x 120, K=64, on the CPU: one record each
+    for host and device-resident frames, with the stage split; the frames
+    are the renderer's."""
+    from feature_detector_fast_tpu_torch.io import render
+
+    gt, frames = vo_bench.sequence(4, 160, 120, workers=1)
+    cfg = vo_bench.render_config(160, 120)
+    np.testing.assert_array_equal(frames[2], render.render_frame(gt[2], cfg, frame_id=2))
+    recs = list(vo_bench.run(device="cpu", max_keypoints=64, seq=(gt, frames)))
+    assert [r["resident"] for r in recs] == [False, True]
+    for r in recs:
+        assert r["frames"] == 4 and r["poses_finite"] and r["frames_per_sec"] > 0
+        assert {"features_s", "frontend_s", "geometry_s", "geo.odom_estimate_pairs_s",
+                "geo.pose_graph_s", "ate_pct_of_trajectory"} <= set(r)
+        assert r["estimate_pairs_dispatch"] == dict.fromkeys(
+            ("kernels", "copies", "launch_calls", "syncs", "device_ms", "wall_ms"))
+    cfg = vo_bench.vo_config(64, cfg.camera())
+    assert (cfg.max_keypoints, cfg.loop_edge_min_gap, cfg.loop_ratio_mad_max,
+            cfg.loop_edge_weight, cfg.ransac_hypotheses) == (512, 48, 0.15, 0.3, 256)
