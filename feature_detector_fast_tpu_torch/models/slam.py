@@ -1,7 +1,6 @@
-"""Monocular visual odometry: the odometry and loop-closure path.
+"""Monocular visual odometry and SLAM: odometry, loop closure, bundle adjustment.
 
-Counterpart of ``feature_detector_fast_tpu.models.slam`` (its lines 1-900
-and ``evaluate_ate``)::
+Counterpart of ``feature_detector_fast_tpu.models.slam``::
 
     frames -> detect + describe (FAST + BRIEF, one batched call)
            -> match consecutive pairs (one batched call)
@@ -11,6 +10,11 @@ and ``evaluate_ate``)::
            -> loop pairs: the same batched estimate, zero-parallax revisits,
               a linear scale-drift solve, robust loop edges
            -> pose-graph optimization
+           -> optional bundle adjustment (``refine_with_ba``): multi-frame
+              tracks by union-find over (frame, slot) keys, loop links
+              included; with loops, rotation averaging then gated global
+              Huber BA, else sliding-window BA (>= 16 frames) or one global
+              BA
 
 Every per-pair estimate of a sequence is one set of batched tensor
 operations over (P, ...) and (P, H, ...) shapes (``estimate_pairs``): no
@@ -26,8 +30,8 @@ device, so the card and the CPU sample the same hypotheses.
 
 Entry points take ``device`` ("cuda", the default, raises without CUDA;
 or "cpu") and ``dtype`` (float32 by default; float64 for parity runs).
-Global bundle adjustment (``ba_refine=True``, ``build_tracks``,
-``refine_with_ba``) is not in the port yet and raises.
+Track building and triangulation stay on the host in numpy, as in the JAX
+package; the bundle-adjustment solves run on ``device``.
 
 Monocular scale is unobservable; trajectories are scored with scale-aligned
 ATE (``evaluate_ate``).
@@ -276,19 +280,14 @@ def _fit_loop_batch(lbatch: PairBatch, k_cap: int) -> PairBatch:
                      lbatch.idx_b[:, :k_cap])
 
 
-def _no_global_ba():
-    raise NotImplementedError(
-        "ba_refine=True needs refine_with_ba, which the port does not have yet: ROADMAP.md "
-        "queue 1, the next slice (build_tracks / triangulate_tracks / refine_with_ba with "
-        "windowed_ba)")
-
-
 def run_vo_matches(
     pair_data: Sequence[Tuple[np.ndarray, ...]],
     config: VOConfig,
     loop_pairs: Optional[Sequence[Tuple]] = None,
     metrics: Optional[list] = None,
     ba_refine: bool = False,
+    mesh=None,
+    _internals: Optional[dict] = None,
     stage_times: Optional[dict] = None,
     *,
     device="cuda",
@@ -302,10 +301,12 @@ def run_vo_matches(
     are frame-i keypoint slots so their scale links against pair i's
     depths.  Returns (F, 4, 4) world_T_cam poses (frame 0 at the identity)
     after pose-graph optimization, in ``dtype``.  ``metrics``, if given,
-    gets one dict per pair and per accepted loop.  ``ba_refine=True``
-    raises: global bundle adjustment is not in the port yet."""
-    if ba_refine:
-        _no_global_ba()
+    gets one dict per pair and per accepted loop.  ``ba_refine=True`` then
+    refines the trajectory with ``refine_with_ba``, its solves distributed
+    over ``mesh`` (a ``parallel.mesh.Mesh``) when one is given.
+    ``_internals``, if given, receives what ``refine_with_ba`` takes: the
+    batch, the pair estimates, the pose graph's result, the loop links and
+    the rotation edges."""
     if len(pair_data) == 0:
         return np.eye(4)[None]
     dev = _device(device)
@@ -339,6 +340,8 @@ def run_vo_matches(
     edge_T = list(rels)
     edge_w = [1.0] * (n - 1)
 
+    ba_loop_links = []  # accepted loops' correspondences, BA's long-range track links
+    rot_edges = None  # relative-rotation graph of BA's rotation averaging
     # Loop-closure edges: all loop pairs in one more batched estimate; each
     # recovers its scale against pair i's chained depths by slot index, and
     # with a sixth element idx_b also observes the relative scale drift
@@ -424,6 +427,9 @@ def run_vo_matches(
                         seg_j = seg
                         log_drift = med
                 accepted.append((i, j, li, (0.0, R_rv), seg_j, log_drift))
+                if len(entry) > 5:
+                    ba_loop_links.append((i, j, lbatch.pa[li], lbatch.pb[li],
+                                          lest.inl[li] & lbatch.valid[li], lbatch.idx_b[li]))
                 continue
             # frame-i depths from the odometry chain, at chained scale
             m = (est.inl[i] & lest.inl[li] & (est.depths_a[i] > 1e-6)
@@ -456,6 +462,12 @@ def run_vo_matches(
                     seg_j = seg
                     log_drift = float(np.log(r_i / r_j))
             accepted.append((i, j, li, r_i, seg_j, log_drift))
+            if len(entry) > 5:
+                # the real frame-j slot linkage makes the loop's inliers
+                # long-range BA track links (a 5-tuple's identity would pair
+                # unrelated keypoints)
+                ba_loop_links.append((i, j, lbatch.pa[li], lbatch.pb[li],
+                                      lest.inl[li] & lbatch.valid[li], lbatch.idx_b[li]))
 
         if stage_times is not None:
             stage_times["loop_accept_host"] = (stage_times.get("loop_accept_host", 0.0)
@@ -510,6 +522,13 @@ def run_vo_matches(
                                 "inliers": int(lest.inl[li].sum()), "scale": s_loop,
                                 "log_drift": log_drift})
 
+    if loop_pairs and len(edge_i) > n - 1:
+        # BA's rotation averaging takes the pose graph's vetted edge set
+        # (odometry and far-gap loops): short-gap loops' two-view rotations
+        # are too noisy (slam.py:643-655 of the JAX package).
+        rot_edges = (list(edge_i), list(edge_j), [np.asarray(T)[:3, :3] for T in edge_T],
+                     list(edge_w))
+
     def put(x, dt=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
 
@@ -523,7 +542,15 @@ def run_vo_matches(
         opt_poses, _ = posegraph.optimize(
             g, config.loop_pose_graph_iters if has_loops else config.pose_graph_iters, "dense",
             robust_delta=config.loop_robust_delta if has_loops else 0.0)
-        return opt_poses.cpu().numpy()
+        result = opt_poses.cpu().numpy()
+    if _internals is not None:
+        _internals.update(batch=batch, est=est, graph_poses=result.copy(),
+                          loop_links=list(ba_loop_links), rot_edges=rot_edges)
+    if ba_refine:
+        result = refine_with_ba(result, batch, est, mesh=mesh, loop_links=ba_loop_links or None,
+                                graph_edges=rot_edges, stage_times=stage_times, device=dev,
+                                dtype=dtype)
+    return result
 
 
 def frontend_features(frames, config: VOConfig, *, device="cuda"
@@ -637,20 +664,225 @@ def propose_loop_closures(frames, config: VOConfig, gap: int = 5, min_matches: i
 
 
 def run_vo_images(frames, config: VOConfig, *, loop_closure_gap: Optional[int] = None,
-                  metrics: Optional[list] = None, ba_refine: bool = False, device="cuda",
-                  dtype: torch.dtype = torch.float32) -> np.ndarray:
+                  metrics: Optional[list] = None, ba_refine: bool = False, mesh=None,
+                  device="cuda", dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Images -> trajectory (F, 4, 4).  With ``loop_closure_gap``, distant
-    frame pairs are matched and added as pose-graph constraints.  Frames are
-    detected and described once; the features feed both consecutive-pair
-    matching and loop proposal."""
-    if ba_refine:
-        _no_global_ba()
+    frame pairs are matched and added as pose-graph constraints;
+    ``ba_refine`` and ``mesh`` are ``run_vo_matches``'.  Frames are detected
+    and described once; the features feed both consecutive-pair matching
+    and loop proposal."""
     feats = frontend_features(frames, config, device=device)
     loops = (propose_loop_closures(frames, config, gap=loop_closure_gap, features=feats)
              if loop_closure_gap else None)
     return run_vo_matches(frontend_matches(frames, config, features=feats), config,
-                          loop_pairs=loops, metrics=metrics, ba_refine=ba_refine,
+                          loop_pairs=loops, metrics=metrics, ba_refine=ba_refine, mesh=mesh,
                           device=device, dtype=dtype)
+
+
+def build_tracks(batch: PairBatch, est: PairEstimates, min_len: int = 3,
+                 loop_links: Optional[Sequence[Tuple]] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Link pair-wise inlier correspondences into multi-frame tracks.
+
+    Linking is exact: pair k's inlier slot i observes frame k at keypoint
+    slot i and frame k+1 at keypoint slot idx_b[k, i].  ``loop_links``,
+    (i, j, pa, pb, inl, idx_b) per accepted loop pair, add the long-range
+    links: loop slot s joins frame-i slot s to frame-j slot idx_b[s].  A loop
+    link can merge two tracks of distant chain segments, so identity is
+    resolved by union-find over the (frame, slot) nodes.  A component that
+    observes one frame at two different slots marks a wrong link and is
+    dropped whole.
+
+    Returns flat observation arrays (obs_cam, obs_lm, obs_uv), sorted by
+    (track, frame), for tracks observed in >= ``min_len`` frames."""
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros((0, 2)))
+    parent: List[int] = []
+    uv_list: List[np.ndarray] = []
+    frame_list: List[int] = []
+    node_id: dict = {}
+
+    def get_node(f: int, s: int, uv) -> int:
+        nid = node_id.get((f, s))
+        if nid is None:
+            nid = len(parent)
+            node_id[(f, s)] = nid
+            parent.append(nid)
+            uv_list.append(uv)
+            frame_list.append(f)
+        return nid
+
+    def find(a: int) -> int:
+        root = a
+        while parent[root] != root:
+            root = parent[root]
+        while parent[a] != root:  # path compression
+            parent[a], a = root, parent[a]
+        return root
+
+    def union(a: int, b: int) -> None:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[ra] = rb
+
+    for k in range(est.inl.shape[0]):
+        m = est.inl[k] & (batch.idx_b[k] >= 0)
+        for s in np.nonzero(m)[0]:
+            union(get_node(k, int(s), batch.pa[k, s]),
+                  get_node(k + 1, int(batch.idx_b[k, s]), batch.pb[k, s]))
+    for (i, j, lpa, lpb, linl, lidx) in (loop_links or ()):
+        m = np.asarray(linl, bool) & (np.asarray(lidx) >= 0)
+        for s in np.nonzero(m)[0]:
+            union(get_node(int(i), int(s), lpa[s]), get_node(int(j), int(lidx[s]), lpb[s]))
+
+    n_nodes = len(parent)
+    if n_nodes == 0:
+        return empty
+    roots = np.fromiter((find(x) for x in range(n_nodes)), np.int64, n_nodes)
+    frames = np.asarray(frame_list, np.int64)
+    _, tid = np.unique(roots, return_inverse=True)
+    n_tracks = int(tid.max()) + 1
+
+    order = np.lexsort((frames, tid))
+    t_sorted = tid[order]
+    f_sorted = frames[order]
+    # the same track and frame in adjacent sorted rows: a double observation
+    # of one frame, so the whole track is inconsistent
+    dup = np.zeros(n_nodes, bool)
+    dup[1:] = (t_sorted[1:] == t_sorted[:-1]) & (f_sorted[1:] == f_sorted[:-1])
+    track_bad = np.zeros(n_tracks, bool)
+    np.logical_or.at(track_bad, t_sorted[dup], True)
+
+    counts = np.bincount(tid, minlength=n_tracks)
+    keep = (~track_bad) & (counts >= min_len)
+    remap = -np.ones(n_tracks, np.int64)
+    remap[keep] = np.arange(int(keep.sum()))
+    sel = keep[t_sorted]
+    uv_arr = np.asarray(uv_list, np.float64).reshape(-1, 2)[order]
+    return f_sorted[sel].astype(np.int32), remap[t_sorted[sel]].astype(np.int32), uv_arr[sel]
+
+
+def triangulate_tracks(w2c: np.ndarray, obs_cam: np.ndarray, obs_lm: np.ndarray,
+                       obs_uv: np.ndarray, n_lm: int) -> np.ndarray:
+    """Multi-view DLT triangulation of every track at once, on the host.
+
+    Each observation contributes the rows u (P X)_z - (P X)_x and
+    v (P X)_z - (P X)_y (P = w2c[:3, :], normalized coordinates); per track
+    the 4 x 4 normal matrix accumulates by segment sum and X is its
+    smallest-eigenvalue eigenvector (float64 ``eigh``).  All observations
+    count: a loop track's first and last frames sit at a revisit (tiny
+    baseline), its middle frames span the real one."""
+    Pm = w2c[obs_cam][:, :3, :]  # (O, 3, 4)
+    r1 = obs_uv[:, 0, None] * Pm[:, 2] - Pm[:, 0]
+    r2 = obs_uv[:, 1, None] * Pm[:, 2] - Pm[:, 1]
+    rows = np.stack([r1, r2], axis=1)  # (O, 2, 4)
+    M = np.zeros((n_lm, 4, 4))
+    np.add.at(M, obs_lm, np.einsum("ori,orj->oij", rows, rows))
+    _, V = np.linalg.eigh(M)
+    X = V[..., 0]  # ascending eigenvalues: column 0 is the smallest
+    w = X[:, 3]
+    w = np.where(np.abs(w) < 1e-9, np.where(w < 0, -1e-9, 1e-9), w)
+    return X[:, :3] / w[:, None]
+
+
+def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
+                   iterations: int = 8, cg_iters: int = 30, mesh=None,
+                   windowed_threshold: int = 16, window: int = 8, stride: int = 5,
+                   loop_links=None, graph_edges=None, robust_delta: float = 0.01,
+                   loop_ba_rounds: int = 2, loop_ba_iters: int = 20, loop_cg_iters: int = 40,
+                   stage_times: Optional[dict] = None, *, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Structure-from-motion refinement of a VO trajectory: build tracks
+    (loop links included), triangulate them from the current poses, run
+    Schur-complement BA (camera 0 fixed), return refined world_T_cam poses.
+
+    Routes, as the JAX package's (slam.py:1031-1166):
+
+    * with loop links: rotation averaging over ``graph_edges``
+      (``posegraph.rotation_average``, float32 as in the JAX package)
+      replaces the absolute rotations, then ``loop_ba_rounds`` rounds of
+      {multi-view re-triangulation -> per-observation gating -> global
+      Huber-IRLS BA};
+    * without loops, at least ``windowed_threshold`` frames: sliding-window
+      BA (``windowed_ba``), the windows one batched problem, split over the
+      mesh's data devices when a mesh is given;
+    * short loop-free trajectories: one global plain BA.
+
+    With ``mesh`` the global solves run distributed (observations split,
+    Schur reductions summed across the shards, ``parallel.ba_sharded``).
+    The solves run on ``device`` in ``dtype``; each ends with one host
+    fetch.  ``stage_times`` keys: ``tracks_host``, ``rotation_avg``,
+    ``triangulate_gate_host``, ``ba_solve``."""
+    dev = _device(device)
+    with _staged(stage_times, "tracks_host"):
+        obs_cam, obs_lm, obs_uv = build_tracks(batch, est, loop_links=loop_links)
+    if obs_lm.size == 0:
+        return poses
+    n_lm = int(obs_lm.max()) + 1
+
+    def gated_problem(cur_poses: np.ndarray):
+        """(w2c, points, per-observation validity) under the current
+        trajectory.  Culling is per observation (a track survives while >= 2
+        of its observations do): a long loop track's far end reprojects
+        worst before refinement, and BA needs exactly those observations."""
+        w2c = np.linalg.inv(cur_poses)
+        pts = triangulate_tracks(w2c, obs_cam, obs_lm, obs_uv, n_lm)
+        Xc = np.einsum("oij,oj->oi", w2c[obs_cam][:, :3, :3], pts[obs_lm]) + w2c[obs_cam][:, :3, 3]
+        depth_ok = Xc[:, 2] > 1e-3
+        proj = Xc[:, :2] / np.maximum(Xc[:, 2:3], 1e-9)
+        obs_ok = depth_ok & (np.linalg.norm(proj - obs_uv, axis=1) < 0.02)
+        n_valid = np.bincount(obs_lm[obs_ok], minlength=n_lm)
+        return w2c, pts, obs_ok & (n_valid >= 2)[obs_lm]
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
+
+    def solve(w2c, pts, valid, iters, cg, delta):
+        # Only camera 0 is fixed: pinning a second (noisy) camera would
+        # anchor BA to its error; the scale gauge is a damped null direction.
+        problem = ba_lib.BAProblem(put(w2c), put(pts), put(obs_cam, torch.int64),
+                                   put(obs_lm, torch.int64), put(obs_uv), put(valid, torch.bool),
+                                   n_fixed_cams=1)
+        if mesh is not None:
+            from ..parallel import ba_sharded
+
+            new_w2c, _, _ = ba_sharded.optimize_sharded(problem, iters, cg, 1e-4, delta, mesh=mesh)
+        else:
+            new_w2c, _, _ = ba_lib.optimize(problem, iters, cg, 1e-4, delta)
+        return np.linalg.inv(new_w2c.cpu().numpy())
+
+    if loop_links is not None and len(loop_links) > 0:
+        cur = np.array(poses)
+        if graph_edges is not None:
+            with _staged(stage_times, "rotation_avg"):
+                ei, ej, eR, ew = graph_edges
+                eR = np.asarray([np.asarray(R)[:3, :3] for R in eR])
+                Rw = posegraph.rotation_average(
+                    put(cur[:, :3, :3], torch.float32), put(ei, torch.int64),
+                    put(ej, torch.int64), put(eR, torch.float32), put(ew, torch.float32))
+                cur[:, :3, :3] = Rw.cpu().numpy()
+        for _ in range(int(loop_ba_rounds)):
+            with _staged(stage_times, "triangulate_gate_host"):
+                w2c, pts, valid = gated_problem(cur)
+            with _staged(stage_times, "ba_solve"):
+                cur = solve(w2c, pts, valid, int(loop_ba_iters), int(loop_cg_iters),
+                            float(robust_delta))
+        return cur
+
+    with _staged(stage_times, "triangulate_gate_host"):
+        w2c, pts, valid = gated_problem(poses)
+    if poses.shape[0] >= int(windowed_threshold):
+        from . import windowed_ba
+
+        sel = np.nonzero(valid)[0]
+        with _staged(stage_times, "ba_solve"):
+            new_w2c = windowed_ba.refine_trajectory_windowed(
+                w2c, pts, obs_cam[sel], obs_lm[sel], obs_uv[sel], window=int(window),
+                stride=int(stride), iterations=int(iterations), mesh=mesh, device=dev,
+                dtype=dtype)
+        return np.linalg.inv(new_w2c)
+
+    with _staged(stage_times, "ba_solve"):
+        return solve(w2c, pts, valid, int(iterations), int(cg_iters), 0.0)
 
 
 def evaluate_ate(est_poses: np.ndarray, gt_poses: np.ndarray) -> float:

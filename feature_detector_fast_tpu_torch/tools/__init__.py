@@ -13,7 +13,11 @@ card (``nvidia-smi`` name and power limit) on stderr:
 * ``exp_off_floor``, ``exp_off_prepack``, ``exp_off_byteswar`` -- the OFF
   words kernel's floors and variants, on the kernels of ``csrc/exp_off.cu``;
 * ``vo_bench`` -- full visual odometry (rendered VGA circuit, K=512) in
-  frames/s and ATE, host and device-resident frames.
+  frames/s and ATE, host and device-resident frames, odometry or (``--loops``)
+  loops + bundle adjustment;
+* ``run_slam_demo`` -- the staged SLAM demo: synthetic correspondences, a
+  rendered circuit (odometry, loops, BA), a KITTI / TUM sequence directory or
+  a directory of images.
 
 The default device is ``"cuda"``, which raises without CUDA; ``"cpu"`` runs
 the plain PyTorch versions at whatever size is asked (the tests use tiny

@@ -1,23 +1,26 @@
 """Full visual odometry: frames/s and ATE of the composed system.
 
-Counterpart of the JAX package's ``tools/vo_bench.py`` (odometry, and
-``--resident``): ``frames`` rendered 640 x 480 frames of a loop circuit
-with every degradation (noise, blur, vignette, 10 interior boxes) ->
-batched detect + describe (K=512) -> batched matching of consecutive pairs
--> batched essential RANSAC (256 hypotheses) with 6 fused Gauss-Newton
-iterations of 12 CG steps a pair -> scale chaining -> pose graph, as
-frames per second of wall clock after a warm-up run: the number a VO
-deployment sees.  Host stages (scale chaining, graph assembly) run between
-the device calls, so this is not a device-only number; the stage split
-(``features_s``, ``frontend_s``, ``geometry_s`` and the ``geo.*`` stages of
-``run_vo_matches``) attributes it.
+Counterpart of the JAX package's ``tools/vo_bench.py``: ``frames``
+rendered 640 x 480 frames of a loop circuit with every degradation (noise,
+blur, vignette, 10 interior boxes) -> batched detect + describe (K=512) ->
+batched matching of consecutive pairs -> batched essential RANSAC (256
+hypotheses) with 6 fused Gauss-Newton iterations of 12 CG steps a pair ->
+scale chaining -> pose graph, as frames per second of wall clock after a
+warm-up run: the number a VO deployment sees.  With ``--loops``, loop
+proposal (gap 10, the 8 most signature-similar partners a frame), the loop
+stages and bundle adjustment (rotation averaging, then 2 rounds of gated
+global Huber BA, 20 iterations of 40 CG steps) run too.  Host stages (scale
+chaining, graph assembly, union-find tracks, triangulation) run between the
+device calls, so this is not a device-only number; the stage split
+(``features_s``, ``frontend_s``, ``loop_propose_s``, ``geometry_s`` and the
+``geo.*`` stages of ``run_vo_matches`` and ``refine_with_ba``) attributes
+it.
 
 With ``resident`` the frame stack is on the device before the timed region
 (the serving pattern; the upload of a stream overlaps the previous batch).
-The JAX tool's ``--loops`` runs global bundle adjustment, which the port
-does not have yet; it is not offered here.
 
-    python -m feature_detector_fast_tpu_torch.tools.vo_bench [frames] [--resident] [--device cpu]
+    python -m feature_detector_fast_tpu_torch.tools.vo_bench [frames] [--loops] [--resident]
+        [--device cpu]
 
 Frames are rendered on the host (not timed) by up to 8 processes.  One
 JSON object per line on stdout; diagnostics on stderr.
@@ -77,13 +80,16 @@ def sequence(frames: int = 64, width: int = 640, height: int = 480,
 
 
 def run(frames: int = 64, *, device="cuda", residents: Sequence[bool] = (False, True),
-        max_keypoints: int = 512,
+        max_keypoints: int = 512, loops: bool = False,
         seq: Optional[Tuple[np.ndarray, List[np.ndarray]]] = None) -> Iterator[dict]:
     """One record per entry of ``residents``: a warm-up run, then a timed run
-    of the odometry path, with frames/s, ATE (percent of the trajectory's
-    length), the stage split and the dispatch counts of the odometry
-    ``estimate_pairs`` (``_common.dispatch_counts``).  ``seq`` supplies
-    ``sequence()``'s output, to render once for several callers."""
+    of the odometry path, or with ``loops`` of loops + bundle adjustment,
+    with frames/s, ATE (percent of the trajectory's length), the stage split
+    and the dispatch counts (``_common.dispatch_counts``) of the odometry
+    ``estimate_pairs`` and, with ``loops``, of one ``refine_with_ba`` on the
+    timed run's inputs, beside the ATE of its pose graph (the loop stage).
+    ``seq`` supplies ``sequence()``'s output, to render once for several
+    callers."""
     dev, card = _common.start(device)
     t0 = time.perf_counter()
     gt, imgs = seq if seq is not None else sequence(frames)
@@ -108,18 +114,25 @@ def run(frames: int = 64, *, device="cuda", residents: Sequence[bool] = (False, 
             t = time.perf_counter()
             pd = slam.frontend_matches(imgs, vocfg, features=feats, device=dev)
             stages["frontend_s"] = time.perf_counter() - t
+            loop_pairs = None
+            if loops:
+                t = time.perf_counter()
+                loop_pairs = slam.propose_loop_closures(imgs, vocfg, gap=10, top_k=8,
+                                                        features=feats, device=dev)
+                stages["loop_propose_s"] = time.perf_counter() - t
             t = time.perf_counter()
-            st = {}
-            est = slam.run_vo_matches(pd, vocfg, stage_times=st, device=dev)
+            st, internals = {}, {}
+            est = slam.run_vo_matches(pd, vocfg, loop_pairs=loop_pairs, ba_refine=loops,
+                                      _internals=internals, stage_times=st, device=dev)
             stages["geometry_s"] = time.perf_counter() - t
             stages.update({f"geo.{k}_s": v for k, v in st.items()})
-            return est, stages, pd
+            return est, stages, pd, loop_pairs, internals
 
         t0 = time.perf_counter()
         run_once()
         _common.log(f"warm-up: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        est, stages, pd = run_once()
+        est, stages, pd, loop_pairs, internals = run_once()
         total = time.perf_counter() - t0
         ate = slam.evaluate_ate(est, gt)
         batch = slam._as_pair_batch(pd)
@@ -127,9 +140,11 @@ def run(frames: int = 64, *, device="cuda", residents: Sequence[bool] = (False, 
             lambda: slam.estimate_pairs(batch, vocfg, device=dev, dtype=torch.float32), dev)
         rec = {
             "metric": f"full-VO frames/sec ({cfg.width}x{cfg.height}, K={max_keypoints}, warm)"
+                      + (" with loop closure + BA" if loops else "")
                       + (" [frames device-resident]" if resident else ""),
             "frames": n,
             "resident": resident,
+            "loops": loops,
             "frames_per_sec": n / total,
             "total_s": total,
             "ate_pct_of_trajectory": 100.0 * ate / traj,
@@ -139,8 +154,22 @@ def run(frames: int = 64, *, device="cuda", residents: Sequence[bool] = (False, 
             "estimate_pairs_dispatch": counts,
             "device": card,
         }
+        if loops:
+            links = internals["loop_links"]
+            rec.update({
+                "loops_proposed": len(loop_pairs),
+                "loop_links": len(links),
+                "loop_stage_ate_pct_of_trajectory":
+                    100.0 * slam.evaluate_ate(internals["graph_poses"], gt) / traj,
+                "refine_with_ba_dispatch": _common.dispatch_counts(
+                    lambda: slam.refine_with_ba(
+                        internals["graph_poses"], internals["batch"], internals["est"],
+                        loop_links=links or None, graph_edges=internals["rot_edges"],
+                        device=dev), dev),
+            })
         _common.log(f"{n} frames in {total:.2f}s = {n / total:.1f} f/s "
-                    f"(ate {100 * ate / traj:.2f}%){' resident' if resident else ''}")
+                    f"(ate {100 * ate / traj:.2f}%){' loops + BA' if loops else ''}"
+                    f"{' resident' if resident else ''}")
         yield rec
 
 
@@ -149,9 +178,11 @@ def main(argv=None) -> int:
     ap.add_argument("frames", nargs="?", type=int, default=64, help="frames (default 64)")
     ap.add_argument("--resident", action="store_true",
                     help="stage the frame stack on the device before the timed region")
+    ap.add_argument("--loops", action="store_true",
+                    help="loop proposal, loop closure and bundle adjustment too")
     args = ap.parse_args(argv)
     return _common.print_records(run(args.frames, device=args.device,
-                                     residents=(args.resident,)))
+                                     residents=(args.resident,), loops=args.loops))
 
 
 if __name__ == "__main__":

@@ -25,13 +25,14 @@ from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda
 from feature_detector_fast_tpu_torch.ops import fast as fast_ops
 from feature_detector_fast_tpu_torch.tools import (
     _common, acceptance, descriptor_bench, exp_off_byteswar, exp_off_floor, exp_off_prepack,
-    fast_bench, frontend_bench, resolution_bench, scaling_bench, serving_bench, sweep, vo_bench)
+    fast_bench, frontend_bench, resolution_bench, run_slam_demo, scaling_bench, serving_bench,
+    sweep, vo_bench)
 from feature_detector_fast_tpu_torch.utils.image import load_luma8, save_image
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 TOOLS = ("acceptance", "descriptor_bench", "exp_off_byteswar", "exp_off_floor",
-         "exp_off_prepack", "fast_bench", "frontend_bench", "resolution_bench", "scaling_bench",
-         "serving_bench", "sweep", "vo_bench")
+         "exp_off_prepack", "fast_bench", "frontend_bench", "resolution_bench", "run_slam_demo",
+         "scaling_bench", "serving_bench", "sweep", "vo_bench")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,23 +260,27 @@ def test_tools_default_to_cuda():
     """Without CUDA a tool's default device raises: no silent CPU run."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default device works here")
-    for run in (sweep.run, exp_off_floor.run, acceptance.run, scaling_bench.run, vo_bench.run):
+    for run in (sweep.run, exp_off_floor.run, acceptance.run, scaling_bench.run, vo_bench.run,
+                run_slam_demo.run):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             next(run())
 
 
 def test_tools_import_no_jax():
     """The tools and the VO back-end (models lie, twoview, ba, posegraph,
-    slam; utils metrics, precision; io render) import neither JAX nor the
-    JAX package (checked in a fresh interpreter, as the port's own modules
-    are in tests/test_torch_api.py)."""
+    slam, windowed_ba; parallel ba_sharded; utils metrics, precision; io
+    render, warp, kitti, tum) import neither JAX nor the JAX package
+    (checked in a fresh interpreter, as the port's own modules are in
+    tests/test_torch_api.py)."""
     code = (
         "import sys\n"
         + "".join(f"import feature_detector_fast_tpu_torch.tools.{t}\n" for t in TOOLS)
         + "from feature_detector_fast_tpu_torch.ops import exp_off, exp_off_cuda\n"
-        "from feature_detector_fast_tpu_torch.models import ba, lie, posegraph, slam, twoview\n"
+        "from feature_detector_fast_tpu_torch.models import (ba, lie, posegraph, slam, twoview,\n"
+        "    windowed_ba)\n"
+        "from feature_detector_fast_tpu_torch.parallel import ba_sharded\n"
         "from feature_detector_fast_tpu_torch.utils import metrics, precision\n"
-        "from feature_detector_fast_tpu_torch.io import render\n"
+        "from feature_detector_fast_tpu_torch.io import kitti, render, tum, warp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'feature_detector_fast_tpu', 'bench')]\n"
         "assert not bad, bad\n"
@@ -477,3 +482,80 @@ def test_vo_bench_records():
     cfg = vo_bench.vo_config(64, cfg.camera())
     assert (cfg.max_keypoints, cfg.loop_edge_min_gap, cfg.loop_ratio_mad_max,
             cfg.loop_edge_weight, cfg.ransac_hypotheses) == (512, 48, 0.15, 0.3, 256)
+
+
+def test_vo_bench_loops_records():
+    """vo_bench with loops at 20 frames of 200 x 150, K=300, on the CPU: the
+    loop and BA stages in the split, the loop stage's ATE beside the final
+    one, and refine_with_ba's dispatch counts (null on the CPU)."""
+    gt, frames = vo_bench.sequence(20, 200, 150, workers=1)
+    (rec,) = vo_bench.run(device="cpu", max_keypoints=300, seq=(gt, frames), residents=(False,),
+                          loops=True)
+    assert rec["loops"] and rec["poses_finite"] and rec["frames"] == 20
+    assert rec["loops_proposed"] >= 1 and "with loop closure + BA" in rec["metric"]
+    assert {"loop_propose_s", "geo.loop_ransac_s", "geo.tracks_host_s",
+            "geo.triangulate_gate_host_s", "geo.ba_solve_s", "loop_stage_ate_pct_of_trajectory",
+            "loop_links"} <= set(rec)
+    assert rec["refine_with_ba_dispatch"] == dict.fromkeys(
+        ("kernels", "copies", "launch_calls", "syncs", "device_ms", "wall_ms"))
+
+
+def test_run_slam_demo_synthetic():
+    """The synthetic mode (10 frames, the JAX tool's default): odometry, then
+    one loop closure, healthy inlier counts."""
+    recs = list(run_slam_demo.run(10, device="cpu"))
+    assert [r["stage"] for r in recs] == ["vo_odometry", "vo_loop_closure", "summary"]
+    assert all(r["device"] == "cpu" for r in recs)
+    assert recs[0]["frames"] == 10 and recs[2]["mean_pair_inliers"] > 100
+    assert recs[1]["ate"] <= recs[0]["ate"] * 1.01 and np.isfinite(recs[0]["ate"])
+
+
+def test_run_slam_demo_images(tmp_path, capsys):
+    """``--images DIR`` (tests/test_render_vo.py:245): rendered PNG frames,
+    one over-sized (cropped back), no poses: per-pair records, ATE null."""
+    from feature_detector_fast_tpu_torch.io import render
+
+    cfg = render.RenderConfig()
+    frames = render.render_sequence(render.demo_trajectory(5), cfg)
+    for i, f in enumerate(frames):
+        if i == 2:
+            f = np.pad(f, ((0, 8), (0, 4)), mode="edge")
+        save_image(f, str(tmp_path / f"frame_{i:03d}.png"))
+    assert run_slam_demo.main(["--images", str(tmp_path), "--max-frames", "5",
+                               "--device", "cpu"]) == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    (load,) = [r for r in records if r["stage"] == "load"]
+    assert load["format"] == "images" and load["frames"] == 5
+    assert load["size"] == [cfg.height, cfg.width]
+    assert len([r for r in records if r["stage"] == "pair"]) == 4
+    (vo,) = [r for r in records if r["stage"] == "vo_images"]
+    assert vo["ate"] is None and vo["mean_pair_inliers"] > 50 and vo["trajectory_frames"] == 5
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert run_slam_demo.main(["--images", str(empty), "--device", "cpu"]) == 1
+
+
+def test_run_slam_demo_sequence(tmp_path):
+    """``--sequence PATH`` on a rendered KITTI-layout tree
+    (tests/test_render_vo.py:70, 6 frames): detected as KITTI, ATE under 4%
+    of the trajectory."""
+    from feature_detector_fast_tpu_torch.io import render
+
+    cfg = render.RenderConfig()
+    gt = render.demo_trajectory(6)
+    seq_dir = tmp_path / "sequences" / "00"
+    (seq_dir / "image_0").mkdir(parents=True)
+    (tmp_path / "poses").mkdir()
+    for i, f in enumerate(render.render_sequence(gt, cfg)):
+        save_image(f, str(seq_dir / "image_0" / f"{i:06d}.png"))
+    cam = cfg.camera()
+    (seq_dir / "calib.txt").write_text(f"P0: {cam.fx} 0 {cam.cx} 0 0 {cam.fy} {cam.cy} 0 0 0 1 0\n")
+    (tmp_path / "poses" / "00.txt").write_text(
+        "".join(" ".join(str(v) for v in T[:3].reshape(-1)) + "\n" for T in gt))
+    recs = list(run_slam_demo.run(mode="sequence", path=str(seq_dir), device="cpu"))
+    assert [r["stage"] for r in recs] == ["load", "vo_images"]
+    assert recs[0]["format"] == "kitti" and recs[0]["frames"] == 6
+    traj = np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum()
+    assert recs[1]["ate"] < 0.04 * traj
+    (bad,) = run_slam_demo.run(mode="sequence", path=str(tmp_path), device="cpu")
+    assert bad["error"] == "unrecognized sequence layout"
