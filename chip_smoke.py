@@ -50,6 +50,19 @@ launch counters zeroed just before it and read just after:
   and 2-D across ``[cuda:0] * 4 + [cpu] * 4``) against one device; then
   loops + BA at RANSAC seeds 1-5 and, on (c)'s graph, in float64 and at 1,
   3 and 4 rounds (the spread the gate's margin is read against, printed).
+* threads, checkpoint, multihost, the dry run, debug and tracing
+  (``dist_phase``): (g) ``posegraph.optimize`` in 4 threads on the card,
+  both solvers, equal to one thread's run, and both interleavings of two
+  threads' ``tf32_off`` guards; (h) a checkpoint of CUDA tensors back
+  bit-identical on the card; (i) ``multihost.initialize``,
+  ``healthcheck`` (its latency printed), the wedged heartbeat and
+  ``CheckpointedLoop``; (j) ``dryrun.entry()``'s forward bit-exact against
+  its plain version on the golden 1080p frame, and ``dryrun_multichip(8)``
+  on ``[cuda:0] * 8`` (counted: ``fdf_fast_dense``, ``fdf_fast_dense_tiles``,
+  ``fdf_fast_words_tiles``, ``fdf_brief_words``) and on ``[cuda:0] * 4 +
+  [cpu] * 4``, each against ``[cpu] * 8``; (k) ``nan_checking`` on a NaN
+  made on the card, and a ``tracing.profile`` trace of
+  ``detect_batch_arrays`` (its span, its device-kernel events).
 
 It then times the FAST kernels' device time against their bounds
 (``tools.fast_bench``: words and dense at 1, 16 and 64 frames of 1080p,
@@ -84,6 +97,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -616,6 +630,320 @@ def ba_phase(dev: torch.device, zero_counts, counts, seq, vo: dict, ctx: dict) -
     log(f"ba: loops -> loops + BA ATE (% of the trajectory) at RANSAC seeds 1-5 "
         f"{json.dumps(spread)}; on (c)'s loop graph {json.dumps(budget)} (float32, 2 rounds: "
         f"{ate_card:.3f})")
+    return out
+
+
+#: dist_phase: CheckpointedLoop steps (every 2 steps a save) and threads.
+DIST_THREADS = 4
+DIST_RUNS = 2
+DIST_HEARTBEATS = 20
+
+
+def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarray, smi: str,
+               out_dir: str) -> dict:
+    """Threads, checkpoint, multihost, the dry run, debug and tracing on the
+    card:
+
+    (g) ``posegraph.optimize`` in 4 threads at once on a 24-pose float64
+        chain on the card, dense and CG solvers, each thread's result equal
+        to the single-thread run's (the forward-AD lock); both ``tf32_off``
+        interleavings of two threads from "high": "highest" (TF32 off)
+        inside every guard, "high" after both exit;
+    (h) ``checkpoint``: CUDA tensors (the dry run's BA step) and a numpy
+        leaf through ``save_state`` / ``restore_state(template=)``:
+        bit-identical, on the card, in the template's dtypes;
+    (i) ``multihost``: ``initialize()`` is a no-op without a cluster
+        environment, ``healthcheck`` on the card (its latency printed), the
+        wedged seam answers False within its timeout and starts no further
+        thread, ``CheckpointedLoop`` resumes after its last save (a
+        two-rank NCCL group cannot form on one card: NCCL puts no two ranks
+        on one GPU; the two-rank path is gloo, in the CPU tests);
+    (j) the dry run: ``dryrun.entry()``'s forward on the golden 1080p frame
+        and on its zero example, bit-exact against the plain version, and
+        ``dryrun_multichip(8)`` on ``[cuda:0] * 8``, counted, and on
+        ``[cuda:0] * 4 + [cpu] * 4`` (``ba_sharded``'s threads on the
+        card), each against the same call on ``[cpu] * 8``: front-end
+        outputs bit-exact, the BA step within ``dryrun.BA_STEP_TOL``, the
+        ATE gates holding (inside the call); launches and wall times
+        printed;
+    (k) ``debug.nan_checking`` raises on a NaN made on the card and not
+        after the scope; ``tracing.profile`` around one
+        ``detect_batch_arrays`` call writes a trace holding the
+        ``annotate`` span, and the device-kernel events in it are counted.
+    """
+    import glob
+    import threading
+
+    from feature_detector_fast_tpu_torch import api, dryrun
+    from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
+    from feature_detector_fast_tpu_torch.models import lie, posegraph
+    from feature_detector_fast_tpu_torch.parallel import multihost
+    from feature_detector_fast_tpu_torch.utils import checkpoint, debug, precision, tracing
+
+    cpu = torch.device("cpu")
+    out = {"card": smi}
+
+    # (g) threaded geometry on the card.
+    n = 24
+    rng = np.random.default_rng(0)
+    xi = np.zeros((n, 6))
+    xi[:, 0], xi[:, 5] = 0.5, 2 * np.pi / n
+    step = lie.se3_exp(torch.from_numpy(xi + rng.normal(0, 0.02, xi.shape)).to(dev))
+    poses = [torch.eye(4, dtype=torch.float64, device=dev)]
+    for k in range(n - 1):
+        poses.append(poses[-1] @ step[k])
+    g = posegraph.PoseGraph(
+        torch.stack(poses), torch.arange(n, device=dev), (torch.arange(n, device=dev) + 1) % n,
+        lie.se3_exp(torch.from_numpy(np.tile(xi[:1], (n, 1))).to(dev)),
+        torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.float64, device=dev))
+    threads_out = {}
+    for solver in ("dense", "cg"):
+        want = posegraph.optimize(g, 3, solver, 12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_RUNS):
+            posegraph.optimize(g, 3, solver, 12)
+        torch.cuda.synchronize()
+        one = (time.perf_counter() - t0) / DIST_RUNS
+        results, errors = [None] * DIST_THREADS, []
+
+        def work(i: int) -> None:
+            try:
+                results[i] = [posegraph.optimize(g, 3, solver, 12) for _ in range(DIST_RUNS)]
+                torch.cuda.synchronize()
+            except Exception as e:  # reported by the check below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=work, args=(i,)) for i in range(DIST_THREADS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300.0)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in ts), f"posegraph threads ({solver}) did not finish")
+        check(not errors, f"posegraph.optimize ({solver}) in threads raised: {errors}")
+        same = all(torch.equal(p, want[0]) and torch.equal(c, want[1])
+                   for runs in results for p, c in runs)
+        check(same, f"posegraph.optimize ({solver}) in a thread != the single-thread run")
+        threads_out[solver] = {"one_thread_s_per_run": one,
+                               "threads_wall_s": wall, "runs": DIST_THREADS * DIST_RUNS,
+                               "threads_s_per_run": wall / (DIST_THREADS * DIST_RUNS)}
+        log(f"dist (g): posegraph.optimize {solver} (24 poses, float64, 3 iterations) in "
+            f"{DIST_THREADS} threads x {DIST_RUNS} runs on {dev}: no error, every result == the "
+            f"single-thread run; {wall / (DIST_THREADS * DIST_RUNS):.4f} s a run in threads "
+            f"({wall:.3f} s wall) vs {one:.4f} s a run alone ({smi})")
+    out["threads"] = threads_out
+
+    matmul = torch.backends.cuda.matmul
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        for first_out in ("A", "B"):
+            a_in, b_in, first_done = threading.Event(), threading.Event(), threading.Event()
+            seen, errors = {}, []
+
+            def guarded(name: str, entered, wait_for) -> None:
+                try:
+                    with precision.tf32_off():
+                        seen[name + " in"] = (torch.get_float32_matmul_precision(),
+                                              matmul.allow_tf32)
+                        entered.set()
+                        check(wait_for.wait(60.0), "tf32 interleaving stalled")
+                        if name != first_out:
+                            check(first_done.wait(60.0), "tf32 interleaving stalled")
+                            seen[name + " after"] = (torch.get_float32_matmul_precision(),
+                                                     matmul.allow_tf32)
+                    if name == first_out:
+                        first_done.set()
+                except Exception as e:  # reported by the check below
+                    errors.append(e)
+
+            def second() -> None:
+                if a_in.wait(60.0):
+                    guarded("B", b_in, b_in)
+
+            ts = [threading.Thread(target=guarded, args=("A", a_in, b_in)),
+                  threading.Thread(target=second)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(120.0)
+            check(not errors and len(seen) == 3, f"tf32 interleaving {first_out}: {errors} {seen}")
+            check(all(v == ("highest", False) for v in seen.values()),
+                  f"tf32_off: TF32 on inside a guard ({first_out} out first): {seen}")
+            check(torch.get_float32_matmul_precision() == "high" and matmul.allow_tf32,
+                  f"tf32_off: the caller's 'high' not restored ({first_out} out first)")
+    finally:
+        torch.set_float32_matmul_precision(old)
+    log("dist (g): tf32_off from 'high', two threads' guards in both exit orders: 'highest' "
+        "(allow_tf32 False) inside every guard, 'high' after both exit")
+
+    # (j) the dry run, counted: entry() and dryrun_multichip on cuda:0 x 8.
+    zero_counts()
+    t0 = time.perf_counter()
+    forward, (example,) = dryrun.entry()
+    check(example.device == dev and example.shape == (1080, 1920) and example.dtype == torch.uint8,
+          f"dryrun.entry() example on {example.device}, {tuple(example.shape)}")
+    frame = torch.from_numpy(g1080).to(dev)
+    got_fwd = [forward(example), forward(frame)]
+    run_card = dryrun.dryrun_multichip(8, [dev] * 8)
+    torch.cuda.synchronize()
+    wall_card = time.perf_counter() - t0
+    launches = kernel_launches()
+    log(f"dist (j): main path launches (entry forward x2 + dryrun_multichip(8) on {dev} x 8): "
+        f"{launches}; {wall_card:.2f} s wall ({smi})")
+    for name in ("fdf_fast_dense", "fdf_fast_dense_tiles", "fdf_fast_words_tiles",
+                 "fdf_brief_words"):
+        check(launches[name] > 0, f"the dry run never launched {name}")
+    out["launches"] = launches
+    out["wall_s"] = {"cuda:0 x 8": wall_card}
+
+    for (mask, score), img, name in zip(got_fwd, (example, frame), ("zero example", "golden 1080p")):
+        p_mask, p_score = forward(img.cpu())
+        check(mask.device == dev and torch.equal(mask.cpu(), p_mask)
+              and torch.equal(score.cpu(), p_score),
+              f"dryrun.entry forward on the card != plain version ({name})")
+    log(f"dist (j): dryrun.entry() forward (fdf_fast_dense, MaxThreshold t=16 n=9) on the zero "
+        f"example and the golden 1080p frame ({int(got_fwd[1][0].sum())} keypoints) == the "
+        f"plain version, bit-exact")
+
+    t0 = time.perf_counter()
+    run_cpu = dryrun.dryrun_multichip(8, [cpu] * 8)
+    out["wall_s"]["cpu x 8"] = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    run_mixed = dryrun.dryrun_multichip(8, [dev] * 4 + [cpu] * 4)
+    torch.cuda.synchronize()
+    out["wall_s"]["cuda:0 x 4 + cpu x 4"] = time.perf_counter() - t0
+    out["launches_mixed"] = kernel_launches()
+    ba_err = {}
+    for name, run in (("cuda:0 x 8", run_card), ("cuda:0 x 4 + cpu x 4", run_mixed)):
+        for key in ("batch_mask", "batch_score", "rows_mask", "rows_score", "rows_points"):
+            check(torch.equal(run[key].cpu(), run_cpu[key]), f"dry run {name}: {key} != cpu x 8")
+        for a, b in zip(run["pipeline"], run_cpu["pipeline"]):
+            check(torch.equal(a.cpu(), b), f"dry run {name}: pipeline outputs != cpu x 8")
+        dryrun.assert_ba_step_close(run["ba_step"], run_cpu["ba_step"])
+        ba_err[name] = [float((a.cpu() - b).abs().max())
+                        for a, b in zip(run["ba_step"], run_cpu["ba_step"])]
+        check(run["ate_mesh"] < max(2.0 * run["ate_single"], 0.05), f"dry run {name}: ATE gate")
+        log(f"dist (j): dryrun_multichip(8) on {name}: front-end (batch, row-split dense and "
+            f"list, pipeline) == cpu x 8 bit-exact; BA step max abs diff poses/points/cost "
+            f"{ba_err[name]} (tol {dryrun.BA_STEP_TOL}); ATE mesh {run['ate_mesh']:.5f} single "
+            f"{run['ate_single']:.5f} windowed {run['ate_windowed']:.5f} (cpu x 8: "
+            f"{run_cpu['ate_mesh']:.5f} / {run_cpu['ate_single']:.5f} / "
+            f"{run_cpu['ate_windowed']:.5f})")
+    out["ba_step_max_abs_diff"] = ba_err
+    out["ate"] = {name: {k: run[k] for k in ("ate_mesh", "ate_single", "ate_windowed")}
+                  for name, run in (("cuda:0 x 8", run_card), ("cpu x 8", run_cpu),
+                                    ("cuda:0 x 4 + cpu x 4", run_mixed))}
+    log(f"dist (j): dry run wall times {json.dumps(out['wall_s'])}; mixed-mesh launches "
+        f"{out['launches_mixed']} ({smi})")
+
+    # (h) checkpoint: CUDA tensors round trip with a template.
+    ck_dir = os.path.join(out_dir, "checkpoint")
+    new_poses, new_points, cost = run_card["ba_step"]
+    state = {"poses": new_poses, "points": new_points, "cost": cost,
+             "frame": np.int32(7), "ids": torch.arange(24, device=dev, dtype=torch.int32)}
+    checkpoint.save_state(ck_dir, 3, state)
+    back = checkpoint.restore_state(ck_dir, template=state)
+    for k, v in state.items():
+        if isinstance(v, torch.Tensor):
+            check(back[k].device == v.device and back[k].dtype == v.dtype
+                  and torch.equal(back[k], v), f"checkpoint: {k} did not come back")
+        else:
+            check(back[k].dtype == np.int32 and int(back[k]) == 7, "checkpoint: frame")
+    log(f"dist (h): checkpoint of the dry run's BA step (CUDA float32 poses/points/cost, int32 "
+        f"ids) + an np.int32 through save_state/restore_state(template=): bit-identical, on "
+        f"{dev}, in the template's dtypes")
+
+    # (i) multihost on one card.
+    check(multihost.initialize() == 0 and not torch.distributed.is_initialized(),
+          "multihost.initialize() formed a group without a cluster environment")
+    check(multihost.healthcheck(devices=[dev]) and multihost.healthcheck(),
+          "multihost.healthcheck on the card failed")
+    lat = []
+    for _ in range(DIST_HEARTBEATS):
+        t0 = time.perf_counter()
+        check(multihost.healthcheck(devices=[dev]), "multihost.healthcheck on the card failed")
+        lat.append(time.perf_counter() - t0)
+    release = threading.Event()
+    t0 = time.perf_counter()
+    check(multihost.healthcheck(0.2, lambda: release.wait(60.0)) is False,
+          "wedged heartbeat did not answer False")
+    wedged_s = time.perf_counter() - t0
+    n_threads = threading.active_count()
+    for _ in range(5):
+        check(multihost.healthcheck(10.0, lambda: release.wait(60.0)) is False,
+              "second wedged heartbeat did not answer False at once")
+    check(threading.active_count() <= n_threads, "wedged heartbeats stacked threads")
+    release.set()
+    time.sleep(0.05)
+    check(multihost.healthcheck(devices=[dev]), "heartbeat after the release failed")
+    loop_dir = os.path.join(out_dir, "loop")
+    loop = multihost.CheckpointedLoop(loop_dir, every=2)
+    init = {"w": torch.zeros(4, device=dev), "step": np.int32(0)}
+    st, start = loop.resume(init)
+    for i in range(5):
+        st = {"w": st["w"] + 1, "step": np.int32(i)}
+        loop.maybe_save(i, st)
+    st2, start2 = loop.resume(init)
+    check(start == 0 and start2 == 4 and st2["w"].device == dev
+          and st2["w"].tolist() == [4.0] * 4 and int(st2["step"]) == 3,
+          f"CheckpointedLoop resumed at {start2} with {st2}")
+    out["heartbeat_ms"] = {"median": 1e3 * float(np.median(lat)), "min": 1e3 * min(lat),
+                           "max": 1e3 * max(lat), "n": len(lat)}
+    out["wedged_answer_s"] = wedged_s
+    log(f"dist (i): initialize() == 0 with no group; healthcheck on {dev}: True, latency "
+        f"(host clock, thread start to answer) median {out['heartbeat_ms']['median']:.3f} ms, "
+        f"min {out['heartbeat_ms']['min']:.3f}, max {out['heartbeat_ms']['max']:.3f} over "
+        f"{len(lat)} ({smi}); wedged seam False in {wedged_s:.3f} s (timeout 0.2 s), no stacked "
+        f"thread; CheckpointedLoop resumed at step 4 with w = 4 on {dev}")
+
+    # (k) debug and tracing on the card.
+    x = torch.tensor([-1.0, 2.0], device=dev)
+    with debug.nan_checking():
+        raised = False
+        try:
+            torch.log(x)
+        except FloatingPointError:
+            raised = True
+        check(raised, "nan_checking did not trip on a NaN made on the card")
+    check(bool(torch.isnan(torch.log(x)).any()), "nan_checking did not leave the scope")
+    trace_dir = os.path.join(out_dir, "trace")
+    batch = np.stack([g1080] * 4)
+    cfg = Config(16, 9, NonmaxMode.MAX_THRESHOLD)
+    api.detect_batch_arrays(batch, cfg)  # warm
+    with tracing.profile(trace_dir) as prof:
+        with tracing.annotate("fdf_detect_batch_arrays"):
+            api.detect_batch_arrays(batch, cfg)
+        torch.cuda.synchronize()
+    [path] = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "fdf_detect_batch_arrays"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(spans, "the profile trace lacks the annotate span")
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    # The profiler's own event list beside the exported file: a kernel in
+    # one and not the other is the export's loss, not CUPTI's.
+    prof_kernels = [e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+    out["trace"] = {"path": os.path.relpath(path, REPO), "events": len(events),
+                    "device_kernel_events": len(kernels), "device_kernel_us": device_us,
+                    "fast_kernel_in_trace": any("fast_kernel" in e["name"] for e in kernels),
+                    "profiler_kernel_events": len(prof_kernels),
+                    "fast_kernel_in_profiler_events": any("fast_kernel" in n
+                                                          for n in prof_kernels)}
+    log(f"dist (k): nan_checking raised FloatingPointError on torch.log of a negative on {dev}, "
+        f"and not after the scope; tracing.profile around detect_batch_arrays (4 x 1080p, MT): "
+        f"{len(events)} events, the annotate span present, {len(kernels)} device-kernel events "
+        f"({device_us} us on the device; fdf_fast_words among them: "
+        f"{out['trace']['fast_kernel_in_trace']}); the profiler's own list: "
+        f"{len(prof_kernels)} kernels (fdf_fast_words among them: "
+        f"{out['trace']['fast_kernel_in_profiler_events']})"
+        + ("" if kernels else " -- CUPTI gave no device-kernel events"))
     return out
 
 
@@ -1228,6 +1556,27 @@ def main() -> int:
     ba_out = ba_phase(dev, zero_counts, vo_counts, seq, vo, vo_ctx)
     log(json.dumps({"ba": ba_out}))
 
+    # -- 3g. threads, checkpoint, multihost, the dry run (counted), debug --
+    launch_keys = {
+        "fdf_fast_words": (fast_cuda, "words"), "fdf_fast_dense": (fast_cuda, "dense"),
+        "fdf_fast_words_tiles": (fast_cuda, "words_tiles"),
+        "fdf_fast_dense_tiles": (fast_cuda, "dense_tiles"),
+        "fdf_brief_words": (brief_cuda, "brief_words"),
+        "fdf_extract_windows": (patch_cuda, "extract_windows"),
+        "fdf_extract_patches": (patch_cuda, "extract_patches"),
+        **{f"fdf_off_floor_{k}": (exp_off_cuda, f"floor_{k}") for k in exp_off.FLOORS},
+        "fdf_fast_words_prepacked": (exp_off_cuda, "words_prepacked"),
+        "fdf_swar_pred16": (exp_off_cuda, "pred16"), "fdf_swar_pred8": (exp_off_cuda, "pred8"),
+    }
+
+    def kernel_launches() -> dict:
+        return {name: lib.LAUNCHES[key] for name, (lib, key) in launch_keys.items()}
+
+    dist_dir = os.path.join(REPO, "chiprun_out", "dist_phase")
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    dist = dist_phase(dev, zero_counts, kernel_launches, g1080, smi, dist_dir)
+    log(json.dumps({"dist": dist}))
+
     # -- 4. timing at (16, 1080, 1920) -------------------------------------
     def device_ms(fn, rounds: int = 20) -> float:
         """Device ms of one call of ``fn``: its launches queued behind a device sleep."""
@@ -1581,6 +1930,9 @@ def main() -> int:
                 "l2_note": "the 16-frame batch (33 MB) may be served from the 50 MB L2 across "
                            "rounds; the 64-frame share (133 MB) is the device-memory share"})
     for row in rows:
+        row["dryrun_launches"] = dist["launches"][row["name"]]
+        row["dryrun_main_path"] = ("dryrun.entry() forward x2 + dryrun_multichip(8) on "
+                                   "cuda:0 x 8")
         if row["name"] in vo["host"]["launches_per_run"]:
             row["vo_launches_per_run"] = vo["host"]["launches_per_run"][row["name"]]
             row["vo_loops_ba_launches_per_run"] = ba_out["host"]["launches_per_run"][row["name"]]

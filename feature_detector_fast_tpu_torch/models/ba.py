@@ -25,7 +25,6 @@ batch's shape.  Gauge: the first ``n_fixed_cams`` cameras are held fixed.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -84,11 +83,6 @@ def _residual_aux(delta_c, delta_l, pose, X, uv):
     return r, r
 
 
-#: Forward-mode AD levels are process-wide, not per thread: the threads of
-#: ``parallel.ba_sharded`` (one a device run) take turns in ``jacfwd``.
-_FORWARD_AD = threading.Lock()
-
-
 def _jacobians(p: BAProblem, robust_delta: float = 0.0):
     """Per-observation residuals r (..., O, 2) and Jacobians Jc (..., O, 2, 6),
     Jl (..., O, 2, 3) at delta = 0, masked by validity.
@@ -106,7 +100,7 @@ def _jacobians(p: BAProblem, robust_delta: float = 0.0):
         (Jc, Jl), r = jacfwd(_residual_aux, argnums=(0, 1), has_aux=True)(z6, z3, pose, X, uv)
         return r, Jc, Jl
 
-    with _FORWARD_AD:
+    with lie.FORWARD_AD:  # the threads of parallel.ba_sharded take turns here
         r, Jc, Jl = vmap(one)(poses_o.reshape(-1, 4, 4), pts_o.reshape(-1, 3),
                               p.obs_uv.reshape(-1, 2))
     r = r.reshape(shape + (2,))

@@ -15,9 +15,18 @@ as T(p) = R p + t.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 _EPS = 1e-8
+
+#: Forward-mode AD levels are process-wide in torch, not per thread: two
+#: threads in ``jacfwd`` / ``jvp`` at once free each other's level.  Every
+#: forward-mode transform of the port (``ba._jacobians``, ``posegraph``'s
+#: dense Jacobian and CG products) runs under this lock; re-entrant, so a
+#: caller that already holds it cannot deadlock.
+FORWARD_AD = threading.RLock()
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:

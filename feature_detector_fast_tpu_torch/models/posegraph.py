@@ -66,7 +66,8 @@ def _normal_system(g: PoseGraph):
     r0, pullback = vjp(f, zero)
 
     def jtj_v(v):
-        _, jv = jvp(f, (zero,), (v,))
+        with lie.FORWARD_AD:
+            _, jv = jvp(f, (zero,), (v,))
         return pullback(jv)[0]
 
     return jtj_v, pullback(r0)[0], (r0 * r0).sum()
@@ -129,7 +130,9 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
         if solver == "dense":
             zero = poses.new_zeros((n, 6))
             r0 = _residual_of_delta(zero, gg)
-            J = jacfwd(lambda d: _residual_of_delta(d, gg))(zero).reshape(r0.numel(), n * 6)
+            with lie.FORWARD_AD:
+                J = jacfwd(lambda d: _residual_of_delta(d, gg))(zero)
+            J = J.reshape(r0.numel(), n * 6)
             r2 = (r0 * r0).sum()
             H = J.T @ J + lam * torch.eye(n * 6, dtype=poses.dtype, device=poses.device)
             delta = -torch.linalg.solve_ex(H, J.T @ r0)[0].reshape(n, 6)
