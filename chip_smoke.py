@@ -22,7 +22,8 @@ launch counters zeroed just before it and read just after:
   the 3-stage ``frontend_pipelined`` -- against the golden pins and the
   single-device paths;
 * the tools -- each ``feature_detector_fast_tpu_torch.tools`` module's
-  ``run()`` at 2 rounds: acceptance, the resolution, sweep, serving,
+  ``run()`` at 2 rounds: acceptance (with ``detect_arrays`` against the
+  native scalar oracle), the resolution, sweep, serving,
   front-end and scaling benchmarks, and the OFF-floor experiments on the
   kernels of ``csrc/exp_off.cu`` -- against the golden counts and their own
   bit-exact checks, and ``run_slam_demo --render`` (16 frames, staged
@@ -50,6 +51,15 @@ launch counters zeroed just before it and read just after:
   and 2-D across ``[cuda:0] * 4 + [cpu] * 4``) against one device; then
   loops + BA at RANSAC seeds 1-5 and, on (c)'s graph, in float64 and at 1,
   3 and 4 rounds (the spread the gate's margin is read against, printed).
+* the scale evaluations and stage profiles (``scale_phase``): (l) the
+  F=128 staged circuit on one device and (m) the F=256 quad-lap circuit with
+  bundle adjustment also on ``cuda:0`` x 8 (``tools.exp_r5_f256_mesh``, the
+  JAX package's relative staged gates and revisit recall; each final ATE
+  printed beside its 1.5% bound), (n) ``tools.exp_vo_stages`` and (o)
+  ``tools.exp_frontend_stages``; then both kernels bit-exact at the
+  (256, 480, 640) stack.  One 256-frame render, in spawned processes
+  beside phases 2-3c (no timed phase runs beside it), serves F=256 and,
+  by its first 128 and 64 frames, F=128 and the VO and BA phases.
 * threads, checkpoint, multihost, the dry run, debug and tracing
   (``dist_phase``): (g) ``posegraph.optimize`` in 4 threads on the card,
   both solvers, equal to one thread's run, and both interleavings of two
@@ -633,6 +643,120 @@ def ba_phase(dev: torch.device, zero_counts, counts, seq, vo: dict, ctx: dict) -
     return out
 
 
+def scale_phase(dev: torch.device, zero_counts, kernel_launches, seq256, max_err: dict,
+                smi: str) -> dict:
+    """The scale evaluations and the stage profiles on the card, each counted
+    (launch counters zeroed just before, read just after):
+
+    (l) ``exp_r5_f256_mesh.run`` at F=128, laps=2, protocol ``staged128``,
+        on one device, on the first 128 frames of the rendered 256-frame circuit (the tool checks
+        the poses are the 128-frame circuit's): odometry, + loops, + BA, the
+        JAX package's gates a1 < 0.6 a0 and a2 < a1;
+    (m) the same tool at F=256, laps=4, protocol ``f256``, with BA also on
+        ``cuda:0`` x 8:
+        revisit recall >= 0.8, a1 < 0.7 a0, a2(mesh) <= 1.05 a1,
+        |a2(mesh) - a2(one)| < 0.3 max; each final ATE beside the JAX
+        package's 1.5% (``under_jax_bound``); one ``fdf_fast_dense`` and one
+        ``fdf_extract_windows`` launch an evaluation;
+    (n) ``exp_vo_stages.run`` on the first 64 frames (the F=64 circuit);
+    (o) ``exp_frontend_stages.run`` at k=1000 on a (16, 1080, 1920) batch,
+        with the dense route at k=8192.
+
+    Then, uncounted, the path's two kernels against their plain versions at
+    (m)'s shapes: ``fdf_fast_dense`` on the (256, 480, 640) stack and
+    ``fdf_extract_windows`` at its 512 keypoints a frame (bit-exact, into
+    ``max_err``)."""
+    from feature_detector_fast_tpu_torch.config import NonmaxMode
+    from feature_detector_fast_tpu_torch.models import slam
+    from feature_detector_fast_tpu_torch.ops import fast, fast_cuda, patch_cuda
+    from feature_detector_fast_tpu_torch.tools import (exp_frontend_stages, exp_r5_f256_mesh,
+                                                       exp_vo_stages, vo_bench)
+
+    gt, frames = seq256
+    out = {"card": smi}
+    for name, n, laps, protocol, mesh in (("(l) F=128", 128, 2, "staged128", None),
+                                          ("(m) F=256", 256, 4, "f256", [dev] * 8)):
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = list(exp_r5_f256_mesh.run(n, laps=laps, protocol=protocol, mesh_devices=mesh,
+                                         device=dev, seq=(gt[:n], frames[:n])))
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        check(launches == {"fdf_fast_dense": 1, "fdf_extract_windows": 1},
+              f"scale {name}: launches {launches}")
+        check(all(r["device"] == smi for r in recs), f"scale {name}: records name another card")
+        by = {r["stage"]: r for r in recs}
+        summary = recs[-1]
+        out[f"F={n}"] = {"records": recs, "launches": launches, "wall_s": wall}
+        for r in recs[:-2]:
+            log(f"scale {name}: {r['stage']}: {r['sec']:.3f} s, stage's own peak "
+                f"{r['stage_peak_bytes'] / 2**30:.3f} GiB (process peak "
+                f"{r['process_peak_bytes'] / 2**30:.3f} GiB)"
+                + (f", ATE {r['ate_pct']:.3f}%" if "ate_pct" in r else "")
+                + "".join(f", {k} {r[k]}" for k in ("loops_proposed", "revisit_recall",
+                                                    "loops_accepted", "loop_edges",
+                                                    "loop_links") if k in r)
+                + f" [{smi}]")
+        log(f"scale {name}: one refine_with_ba {json.dumps(by['dispatch']['refine_with_ba'])}; "
+            f"one loop-graph posegraph.optimize ({by['dispatch']['pose_graph_poses']} poses, "
+            f"{by['dispatch']['pose_graph_edges']} edges) "
+            f"{json.dumps(by['dispatch']['pose_graph'])} [{smi}]")
+        log(f"scale {name}: ATE % of the trajectory {json.dumps(summary['ate_pct'])}; gates "
+            f"{json.dumps(summary['gates'])}; under the JAX package's "
+            f"{exp_r5_f256_mesh.JAX_BOUND_PCT}%: "
+            f"{json.dumps(summary['under_jax_bound'])}; {wall:.1f} s in all; launches "
+            f"{launches} [{smi}]")
+        for gate, ok in summary["gates"].items():
+            check(ok, f"scale {name}: gate {gate} fails: ATE {summary['ate_pct']}, "
+                      f"{by['matches + loop proposal']}")
+
+    # The path's two kernels against their plain versions at (m)'s shapes.
+    cfg = vo_bench.vo_config(256, vo_bench.render_config().camera())
+    stack = torch.from_numpy(np.stack(frames)).to(dev)
+    args = (stack, cfg.threshold, cfg.count, NonmaxMode.SUM_ABSOLUTE)
+    (k_mask, k_score), (p_mask, p_score) = fast_cuda.detect_dense(*args), fast.detect_dense(*args)
+    xy = slam.frontend_features(frames, cfg, device=dev)[0]
+    torch.cuda.synchronize()
+
+    def err(a: torch.Tensor, b: torch.Tensor) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    e_d = max(err(k_mask, p_mask), err(k_score, p_score))
+    e_w = err(patch_cuda.extract_windows_fused(stack, xy), patch_cuda.extract_windows_plain(stack, xy))
+    max_err["dense"] = max(max_err["dense"], e_d)
+    max_err["extract_windows"] = max(max_err["extract_windows"], e_w)
+    check(e_d == 0 and e_w == 0, f"scale: at the path's shapes, dense err {e_d}, windows err {e_w}")
+    log(f"scale: kernels vs plain at the path's shapes: fdf_fast_dense on {tuple(stack.shape)}, "
+        f"fdf_extract_windows at {tuple(xy.shape[:2])} keypoints, bit-exact")
+    del stack, k_mask, k_score, p_mask, p_score
+
+    # (n), (o) the stage profiles
+    for name, tool, kw in (("(n) exp_vo_stages", exp_vo_stages, dict(seq=(gt[:64], frames[:64]))),
+                           ("(o) exp_frontend_stages", exp_frontend_stages, {})):
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = list(tool.run(device=dev, **kw))
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        check(all(r["device"] == smi for r in recs), f"scale {name}: records name another card")
+        out[name.split()[1]] = {"records": recs, "launches": launches,
+                                "wall_s": time.perf_counter() - t0}
+        for r in recs:
+            log(f"scale {name}: {r['stage']}: "
+                + (f"{r['ms_per_frame']:.4f} ms a frame (device), delta {r['delta_ms']:+.4f} "
+                   f"over {r['prefix'] or 'nothing'}" if "ms_per_frame" in r else
+                   f"ATE {r['ate_pct']:.3f}%" if "ate_pct" in r else
+                   f"{r['sec']:.4f} s (median), {json.dumps(r['dispatch'])}")
+                + f" [{smi}]")
+        log(f"scale {name}: launches {launches}")
+    check(out["exp_vo_stages"]["launches"] == {"fdf_fast_dense": 1, "fdf_extract_windows": 1},
+          f"scale (n): launches {out['exp_vo_stages']['launches']}")
+    fe = out["exp_frontend_stages"]["launches"]
+    check(all(fe.get(k, 0) > 0 for k in ("fdf_fast_dense", "fdf_extract_windows",
+                                         "fdf_brief_words")),
+          f"scale (o): launches {fe}")
+    return out
+
+
 #: dist_phase: CheckpointedLoop steps (every 2 steps a save) and threads.
 DIST_THREADS = 4
 DIST_RUNS = 2
@@ -956,6 +1080,7 @@ def main() -> int:
     import feature_detector_fast_tpu_torch as port
     from feature_detector_fast_tpu_torch import api, serving
     from feature_detector_fast_tpu_torch.config import Config, NonmaxMode
+    from feature_detector_fast_tpu_torch.io import render
     from feature_detector_fast_tpu_torch.models import brief, match, pyramid
     from feature_detector_fast_tpu_torch.models.brief import Keypoints
     from feature_detector_fast_tpu_torch.ops import (
@@ -1013,6 +1138,15 @@ def main() -> int:
         check(all(sp == 0 for *_, sp in v), f"fast.cu {mode_name} {form} spills")
         check(mode_name != "off" or max(regs) <= 32,
               f"fast.cu off {form} uses {max(regs)} registers (> 32: below full occupancy)")
+
+    # The 256-frame VGA circuit renders (host numpy) in spawned processes
+    # beside the untimed checks of phases 2-3c, and is waited for before
+    # the tools phase, so that no host-clock reading runs beside it; its
+    # first 64 and 128 frames are the F=64 and F=128 circuits
+    # (vo_bench.sequence).
+    render_t0 = time.perf_counter()
+    render_workers = max(1, (os.cpu_count() or 2) - 2)
+    gt256, render_wait = vo_bench.render_async(256, workers=render_workers)
 
     modes = list(NonmaxMode)
     ref = load_luma8(os.path.join(REPO, "media", "Screenshot315_torch_grey.png"))
@@ -1475,6 +1609,11 @@ def main() -> int:
             f"{(stream.match_idx >= 0).sum(-1).tolist()}; frames 0/1 match {n01} (pin)")
 
     # -- 3d. the tools, counted --------------------------------------------
+    t0 = time.perf_counter()
+    seq256 = (gt256, render_wait())
+    log(f"render: the 256-frame 640x480 circuit in {time.perf_counter() - render_t0:.1f} s "
+        f"(host, {render_workers} processes, beside phases 2-3c; "
+        f"{time.perf_counter() - t0:.1f} s waited here, before the timed tools)")
     # Each tool's run() on the card at 2 rounds; their checks raise.
     zero_counts()
     tool_recs = {}
@@ -1492,6 +1631,9 @@ def main() -> int:
         tool_recs[name] = list(tool.run(device="cuda", **kw))
         check(all(r["device"] == smi for r in tool_recs[name]), f"{name}: records name another card")
         log(f"tool {name}: {len(tool_recs[name])} records in {time.perf_counter() - t0:.1f} s")
+        if name == "acceptance":  # the first tool: the counts are its own
+            acceptance_launches = {"fdf_fast_words": fast_cuda.LAUNCHES["words"],
+                                   "fdf_fast_dense": fast_cuda.LAUNCHES["dense"]}
     torch.cuda.synchronize()
     tool_launches = {f"fdf_off_floor_{stage}": exp_off_cuda.LAUNCHES[f"floor_{stage}"]
                      for stage in exp_off.FLOORS}
@@ -1505,6 +1647,15 @@ def main() -> int:
     summary = tool_recs["acceptance"][-1]
     check(summary["ok"] and summary["configs"] == 24 and not summary["failures"],
           f"acceptance: {summary}")
+    oracle_recs = [r for r in tool_recs["acceptance"]
+                   if r.get("oracle") or r.get("check", "").startswith("oracle random")]
+    check(len(oracle_recs) == 24 + len(acceptance.RANDOM_SHAPES)
+          and all(r["ok"] for r in oracle_recs),
+          "acceptance: detect_arrays != the native oracle")
+    check(all(acceptance_launches.values()), f"acceptance: launches {acceptance_launches}")
+    log(f"tools: acceptance: detect_arrays == the native scalar oracle (g++) at 24 configs on "
+        f"the 1080p frame and on random frames {list(acceptance.RANDOM_SHAPES)}; launches "
+        f"{acceptance_launches}")
     res = {r["resolution"]: r for r in tool_recs["resolution_bench"]}
     check(res["1080p"]["keypoints"] == 24130, f"resolution_bench 1080p: {res['1080p']}")
     sw = {(r["threshold"], r["count"]): r for r in tool_recs["sweep"]}
@@ -1545,10 +1696,9 @@ def main() -> int:
                 "fdf_extract_windows": patch_cuda.LAUNCHES["extract_windows"],
                 "fdf_brief_words": brief_cuda.LAUNCHES["brief_words"]}
 
-    t0 = time.perf_counter()
-    seq = vo_bench.sequence(64)
-    log(f"vo: rendered the 64-frame 640x480 circuit in {time.perf_counter() - t0:.1f} s "
-        f"(host, {min(8, os.cpu_count() or 1)} processes)")
+    check(np.array_equal(gt256[:64], render.loop_trajectory(64, radius=2.0, laps=1)),
+          "the 256-frame circuit's first 64 poses are not the 64-frame circuit's")
+    seq = (gt256[:64], seq256[1][:64])
     vo, vo_ctx = vo_phase(dev, zero_counts, vo_counts, max_err, seq)
     log(json.dumps({"vo": vo}))
 
@@ -1556,7 +1706,7 @@ def main() -> int:
     ba_out = ba_phase(dev, zero_counts, vo_counts, seq, vo, vo_ctx)
     log(json.dumps({"ba": ba_out}))
 
-    # -- 3g. threads, checkpoint, multihost, the dry run (counted), debug --
+    # -- 3g. the scale evaluations and the stage profiles, counted ---------
     launch_keys = {
         "fdf_fast_words": (fast_cuda, "words"), "fdf_fast_dense": (fast_cuda, "dense"),
         "fdf_fast_words_tiles": (fast_cuda, "words_tiles"),
@@ -1572,6 +1722,13 @@ def main() -> int:
     def kernel_launches() -> dict:
         return {name: lib.LAUNCHES[key] for name, (lib, key) in launch_keys.items()}
 
+    t0 = time.perf_counter()
+    scale = scale_phase(dev, zero_counts, kernel_launches, seq256, max_err, smi)
+    log(f"scale: phase in {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"scale": scale}))
+    del seq256
+
+    # -- 3h. threads, checkpoint, multihost, the dry run (counted), debug --
     dist_dir = os.path.join(REPO, "chiprun_out", "dist_phase")
     shutil.rmtree(dist_dir, ignore_errors=True)
     dist = dist_phase(dev, zero_counts, kernel_launches, g1080, smi, dist_dir)
@@ -1930,6 +2087,10 @@ def main() -> int:
                 "l2_note": "the 16-frame batch (33 MB) may be served from the 50 MB L2 across "
                            "rounds; the 64-frame share (133 MB) is the device-memory share"})
     for row in rows:
+        row["acceptance_launches"] = acceptance_launches.get(row["name"], 0)
+        row["scale_phase_launches"] = {
+            tag: scale[tag]["launches"].get(row["name"], 0)
+            for tag in ("F=128", "F=256", "exp_vo_stages", "exp_frontend_stages")}
         row["dryrun_launches"] = dist["launches"][row["name"]]
         row["dryrun_main_path"] = ("dryrun.entry() forward x2 + dryrun_multichip(8) on "
                                    "cuda:0 x 8")

@@ -14,7 +14,7 @@ of the zero-padded image; the CUDA kernel (csrc/fast.cu) hard-codes the same
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 #: (dx, dy) offsets of the 16 circle points, clockwise from twelve o'clock.
 CIRCLE: Tuple[Tuple[int, int], ...] = (
@@ -45,3 +45,22 @@ NORTH: int = 0
 EAST: int = 4
 SOUTH: int = 8
 WEST: int = 12
+
+CIRCLE_LEN: int = len(CIRCLE)
+
+
+def circle() -> Tuple[Tuple[int, int], ...]:
+    """The 16-point radius-3 Bresenham circle (reference: opencv_compat.rs:42-61)."""
+    return CIRCLE
+
+
+def point(index: int) -> Tuple[int, int]:
+    """Circle point by (wrapping) index (reference: opencv_compat.rs:64-66)."""
+    return CIRCLE[index % CIRCLE_LEN]
+
+
+def calculate_offsets(width: int) -> List[int]:
+    """Flat row-major memory offsets of the circle points for an image of
+    ``width`` (reference: fast_simd.rs:104-110); the native oracle reads
+    taps at such offsets."""
+    return [dy * int(width) + dx for (dx, dy) in CIRCLE]

@@ -306,7 +306,7 @@ def run_vo_matches(
     over ``mesh`` (a ``parallel.mesh.Mesh``) when one is given.
     ``_internals``, if given, receives what ``refine_with_ba`` takes: the
     batch, the pair estimates, the pose graph's result, the loop links and
-    the rotation edges."""
+    the rotation edges; and the pose graph as it was optimized (``graph``)."""
     if len(pair_data) == 0:
         return np.eye(4)[None]
     dev = _device(device)
@@ -545,7 +545,7 @@ def run_vo_matches(
         result = opt_poses.cpu().numpy()
     if _internals is not None:
         _internals.update(batch=batch, est=est, graph_poses=result.copy(),
-                          loop_links=list(ba_loop_links), rot_edges=rot_edges)
+                          loop_links=list(ba_loop_links), rot_edges=rot_edges, graph=g)
     if ba_refine:
         result = refine_with_ba(result, batch, est, mesh=mesh, loop_links=ba_loop_links or None,
                                 graph_edges=rot_edges, stage_times=stage_times, device=dev,

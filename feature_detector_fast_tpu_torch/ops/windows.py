@@ -68,6 +68,15 @@ def _check(planes: Sequence[T], n: int) -> None:
         raise ValueError(f"expected {RING} planes, got {len(planes)}")
 
 
+def ring_windowed(planes: Sequence[T], n: int, combine) -> List[T]:
+    """All 16 circular windowed reductions of length ``n``:
+    ``out[s] = combine(planes[s], ..., planes[(s+n-1) % 16])``.
+    ``combine`` must be associative (AND, OR, min, max, +)."""
+    _check(planes, n)
+    lv = _power_levels(planes, combine)
+    return [_window_at(lv, n, s, combine) for s in range(RING)]
+
+
 def ring_any_window_all(planes: Sequence[T], n: int, logical_and, logical_or) -> T:
     """Does ANY circular window of length ``n`` have all elements true?
 

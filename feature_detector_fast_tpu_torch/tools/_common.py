@@ -396,20 +396,44 @@ def dispatch_counts(fn: Callable, device: torch.device) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
-    kernels = copies = launches = 0
-    device_us = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device_us += e.time_range.elapsed_us()
-            if e.name.startswith(("Memcpy", "Memset")):
+    kernels = copies = launches = device_ns = 0
+    # The raw events: ``prof.events()`` would first build a tree of Python
+    # objects from them, tens of seconds for the ~68k kernels of a bundle
+    # adjustment.
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device_ns += e.duration_ns()
+            if e.name().startswith(("Memcpy", "Memset")):
                 copies += 1
             else:
                 kernels += 1
-        elif "LaunchKernel" in e.name:
+        elif "LaunchKernel" in e.name():
             launches += 1
     return {"kernels": kernels or None, "copies": copies if kernels else None,
             "launch_calls": launches or None, "syncs": syncs,
-            "device_ms": device_us / 1e3 if kernels else None, "wall_ms": wall_ms}
+            "device_ms": device_ns / 1e6 if kernels else None, "wall_ms": wall_ms}
+
+
+def timed_stage(fn: Callable, device: torch.device
+                ) -> Tuple[object, float, Optional[int], Optional[int]]:
+    """(``fn()``, its seconds by the host clock up to a device
+    synchronisation, the stage's own peak bytes -- the device's
+    ``torch.cuda.max_memory_allocated`` over the call less what was
+    allocated when it began -- and that peak itself, which also counts what
+    earlier work left allocated).  Both byte counts are None on the CPU."""
+    held = None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    sec = time.perf_counter() - t0
+    if held is None:
+        return out, sec, None, None
+    peak = torch.cuda.max_memory_allocated(device)
+    return out, sec, peak - held, peak
 
 
 def tiled(base: np.ndarray, h: int, w: int) -> np.ndarray:

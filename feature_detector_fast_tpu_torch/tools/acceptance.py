@@ -6,7 +6,13 @@ For every nonmax mode x count 9..=16 (24 configs) on the benchmark frame
   * the dense kernel (``fdf_fast_dense``) == the plain PyTorch detector
     (``ops/fast.py``): mask and score;
   * the words kernel (``fdf_fast_words``) == the words packed from the dense
-    kernel's mask.
+    kernel's mask;
+  * the keypoint list of ``detect_arrays`` == the native scalar oracle's
+    (``oracle/native.py``, C++ built with g++: an implementation independent
+    of the port's kernels and of its plain detector).
+
+The same oracle comparison, at all 24 configs, on seeded random frames at
+the odd widths the kernels are held at (:data:`RANDOM_SHAPES`).
 
 Then BRIEF: ``describe_patched`` (plain and steered) == the sparse
 ``describe`` / ``describe_oriented`` at every valid slot of the k=512 top
@@ -42,12 +48,17 @@ from ..api import detect_arrays
 from ..config import Config, NonmaxMode
 from ..models import brief
 from ..ops import compact, fast, fast_cuda
+from ..oracle import native as oracle
 from ..utils.image import load_luma8
 from . import _common
 
 #: The committed 300 x 200 frame at t=16, n=9 (tests/test_golden.py).
 GOLDEN = {NonmaxMode.OFF: 309, NonmaxMode.MAX_THRESHOLD: 131, NonmaxMode.SUM_ABSOLUTE: 135}
 BRIEF_K = 512
+#: Seeded random frames of the oracle comparison: widths off the 32- and
+#: 128-column grids, heights off the 32-row strip (as in chip_smoke.py).
+RANDOM_SHAPES = ((37, 1931), (61, 157), (45, 157))
+RANDOM_SEED = 0x5EED
 
 
 def _git_head() -> str:
@@ -115,12 +126,27 @@ def run(*, device="cuda", frame: np.ndarray = None, artifact: str = None) -> Ite
             dense_ok = (torch.equal(k_mask.to(torch.int32), p_mask.to(torch.int32))
                         and torch.equal(k_score.to(torch.int32), p_score.to(torch.int32)))
             words_ok = torch.equal(words, compact.pack_mask_words(k_mask.to(torch.bool)))
+            cfg = Config(16, count, mode)
+            oracle_ok = np.array_equal(detect_arrays(img, cfg, device=dev),
+                                       oracle.detect_arrays(img, cfg))
+            ok = dense_ok and words_ok and oracle_ok
             tag = f"{mode.name} c={count}"
-            if dense_ok and words_ok:
+            if ok:
                 configs_passed.append(tag)
-            yield record(tag, dense_ok and words_ok,
-                         f"dense == plain: {dense_ok}, words == packed dense: {words_ok}",
-                         dense=dense_ok, words=words_ok, keypoints=int(p_mask.sum()))
+            yield record(tag, ok,
+                         f"dense == plain: {dense_ok}, words == packed dense: {words_ok}, "
+                         f"detect_arrays == native oracle: {oracle_ok}",
+                         dense=dense_ok, words=words_ok, oracle=oracle_ok,
+                         keypoints=int(p_mask.sum()))
+
+    rng = np.random.default_rng(RANDOM_SEED)
+    for h, w in RANDOM_SHAPES:
+        frame_r = rng.integers(0, 256, (h, w), np.uint8)
+        differ = [f"{mode.name} c={count}" for mode in NonmaxMode for count in range(9, 17)
+                  if not np.array_equal(detect_arrays(frame_r, Config(16, count, mode), device=dev),
+                                        oracle.detect_arrays(frame_r, Config(16, count, mode)))]
+        yield record(f"oracle random {h}x{w}", not differ,
+                     f"detect_arrays != native oracle at {differ}", configs=24)
 
     mask, score = fast_cuda.detect_dense(im, 16, 9, NonmaxMode.SUM_ABSOLUTE)
     kps = brief.select_topk(mask, score, BRIEF_K)
@@ -152,6 +178,7 @@ def run(*, device="cuda", frame: np.ndarray = None, artifact: str = None) -> Ite
                      else f"given, {img.shape[0]} x {img.shape[1]}",
             "configs_run": n_cfg,
             "configs_passed": configs_passed,
+            "oracle_random_shapes": [list(hw) for hw in RANDOM_SHAPES],
             "brief_checked": True,
             "brief_k": BRIEF_K,
             "goldens": goldens,

@@ -33,7 +33,7 @@ import multiprocessing
 import os
 import sys
 import time
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,21 +62,44 @@ def _render_one(args) -> np.ndarray:
     return render.render_frame(pose, cfg, frame_id=k)
 
 
-def sequence(frames: int = 64, width: int = 640, height: int = 480,
-             workers: Optional[int] = None) -> Tuple[np.ndarray, List[np.ndarray]]:
-    """(ground-truth world_T_cam poses, rendered u8 frames) of the tool's
-    circuit, ``laps = max(1, frames // 64)``; frames render in ``workers``
-    spawned processes (default: one a CPU, at most 8), each frame what
-    ``render.render_sequence`` gives."""
+def render_async(frames: int = 64, width: int = 640, height: int = 480,
+                 workers: Optional[int] = None, laps: Optional[int] = None
+                 ) -> Tuple[np.ndarray, Callable[[], List[np.ndarray]]]:
+    """Start rendering :func:`sequence`'s circuit: returns (the ground-truth
+    poses, ``wait``).  The frames render in ``workers`` spawned processes
+    while the caller goes on; ``wait()`` returns them and stops the
+    processes.  With one worker, ``wait()`` renders in this process."""
     cfg = render_config(width, height)
-    gt = render.loop_trajectory(frames, radius=2.0, laps=max(1, frames // 64))
+    laps = laps or max(1, frames // 64)
+    gt = render.loop_trajectory(frames, radius=2.0, laps=laps)
     workers = workers or min(8, os.cpu_count() or 1)
     jobs = [(pose, cfg, k) for k, pose in enumerate(gt)]
     if workers <= 1:
-        return gt, [_render_one(j) for j in jobs]
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return gt, list(pool.map(_render_one, jobs))
+        return gt, lambda: [_render_one(j) for j in jobs]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    results = pool.map(_render_one, jobs)
+
+    def wait() -> List[np.ndarray]:
+        try:
+            return list(results)
+        finally:
+            pool.shutdown()
+
+    return gt, wait
+
+
+def sequence(frames: int = 64, width: int = 640, height: int = 480,
+             workers: Optional[int] = None, laps: Optional[int] = None
+             ) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """(ground-truth world_T_cam poses, rendered u8 frames) of the tool's
+    circuit, by default ``laps = max(1, frames // 64)``; frames render in
+    ``workers`` spawned processes (default: one a CPU, at most 8), each frame
+    what ``render.render_sequence`` gives.  At 64 frames a lap, the first n
+    frames of ``sequence(m)`` are ``sequence(n)`` for n <= m (the camera's
+    angle 2 pi laps k / frames and the noise seed k of frame k are the same)."""
+    gt, wait = render_async(frames, width, height, workers, laps)
+    return gt, wait()
 
 
 def run(frames: int = 64, *, device="cuda", residents: Sequence[bool] = (False, True),

@@ -30,9 +30,10 @@ from feature_detector_fast_tpu_torch.tools import (
 from feature_detector_fast_tpu_torch.utils.image import load_luma8, save_image
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
-TOOLS = ("acceptance", "descriptor_bench", "exp_off_byteswar", "exp_off_floor",
-         "exp_off_prepack", "fast_bench", "frontend_bench", "resolution_bench", "run_slam_demo",
-         "scaling_bench", "serving_bench", "sweep", "vo_bench")
+TOOLS = ("acceptance", "descriptor_bench", "exp_frontend_stages", "exp_off_byteswar",
+         "exp_off_floor", "exp_off_prepack", "exp_r5_f256_mesh", "exp_vo_stages", "fast_bench",
+         "frontend_bench", "resolution_bench", "run_slam_demo", "scaling_bench", "serving_bench",
+         "sweep", "vo_bench")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -152,8 +153,11 @@ def test_acceptance_ok_on_a_crop(crop):
     last = recs[-1]
     assert last == {"ok": True, "configs": 24, "failures": [], "device": "cpu"}
     checks = [r["check"] for r in recs[:-1]]
-    assert len(checks) == 24 + 2 + 3 and checks[0] == "OFF c=9"
+    assert len(checks) == 24 + len(acceptance.RANDOM_SHAPES) + 2 + 3 and checks[0] == "OFF c=9"
     assert recs[0]["keypoints"] == n_keypoints(crop)
+    assert all(r["oracle"] for r in recs[:24])
+    assert checks[24:24 + len(acceptance.RANDOM_SHAPES)] == [
+        f"oracle random {h}x{w}" for h, w in acceptance.RANDOM_SHAPES]
     brief_recs = [r for r in recs if r.get("check", "").startswith("BRIEF")]
     assert all(r["valid_slots"] > 0 for r in brief_recs)
 
