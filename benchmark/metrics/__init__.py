@@ -1,0 +1,1 @@
+"""Part of the benchmark of the PyTorch/CUDA port (see BENCHMARK.json)."""
