@@ -792,8 +792,8 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
         printed;
     (k) ``debug.nan_checking`` raises on a NaN made on the card and not
         after the scope; ``tracing.profile`` around one
-        ``detect_batch_arrays`` call writes a trace holding the
-        ``annotate`` span, and the device-kernel events in it are counted.
+        ``detect_batch_arrays`` call writes a trace holding a
+        ``tracing.span``, and the device-kernel events in it are counted.
     """
     import glob
     import threading
@@ -1039,7 +1039,7 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
     cfg = Config(16, 9, NonmaxMode.MAX_THRESHOLD)
     api.detect_batch_arrays(batch, cfg)  # warm
     with tracing.profile(trace_dir) as prof:
-        with tracing.annotate("fdf_detect_batch_arrays"):
+        with tracing.span("fdf_detect_batch_arrays"):
             api.detect_batch_arrays(batch, cfg)
         torch.cuda.synchronize()
     [path] = glob.glob(os.path.join(trace_dir, "*.json"))
@@ -1047,7 +1047,7 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
         events = json.load(f)["traceEvents"]
     spans = [e for e in events if e.get("name") == "fdf_detect_batch_arrays"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    check(spans, "the profile trace lacks the annotate span")
+    check(spans, "the profile trace lacks the program's span")
     device_us = sum(e.get("dur", 0) for e in kernels)
     # The profiler's own event list beside the exported file: a kernel in
     # one and not the other is the export's loss, not CUPTI's.
@@ -1062,7 +1062,7 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
                                                           for n in prof_kernels)}
     log(f"dist (k): nan_checking raised FloatingPointError on torch.log of a negative on {dev}, "
         f"and not after the scope; tracing.profile around detect_batch_arrays (4 x 1080p, MT): "
-        f"{len(events)} events, the annotate span present, {len(kernels)} device-kernel events "
+        f"{len(events)} events, the program's span present, {len(kernels)} device-kernel events "
         f"({device_us} us on the device; fdf_fast_words among them: "
         f"{out['trace']['fast_kernel_in_trace']}); the profiler's own list: "
         f"{len(prof_kernels)} kernels (fdf_fast_words among them: "

@@ -24,6 +24,7 @@ import torch
 
 from .config import Config, NonmaxMode, Point
 from .ops import compact, fast_cuda
+from .utils import tracing
 
 ImageLike = Union[np.ndarray, torch.Tensor]
 
@@ -50,7 +51,8 @@ def _as_images(image: ImageLike, expect_ndim: int, device) -> torch.Tensor:
     if img.dim() != expect_ndim:
         raise ValueError(
             f"expected a {expect_ndim}-D image array, got shape {tuple(img.shape)}")
-    return img.to(dev).contiguous()
+    with tracing.span("detect.h2d"):
+        return img.to(dev).contiguous()
 
 
 def detect_batch_device(
@@ -61,8 +63,9 @@ def detect_batch_device(
     without any host transfer or synchronisation."""
     config = config or Config()
     imgs = _as_images(images, 3, device)
-    words = fast_cuda.detect_words(imgs, config.threshold, config.count, config.nonmax)
-    return words, compact.count_points(words)
+    with tracing.span("detect.launch"):
+        words = fast_cuda.detect_words(imgs, config.threshold, config.count, config.nonmax)
+        return words, compact.count_points(words)
 
 
 def detect_batch_arrays(
@@ -70,8 +73,9 @@ def detect_batch_arrays(
 ) -> List[np.ndarray]:
     """Detect over a (B, H, W) u8 batch; returns a list of per-frame (N_i, 2)
     uint32 arrays of (x, y) rows in row-major order."""
-    words, _ = detect_batch_device(images, config, device=device)
-    return compact.split_frames(compact.words_to_points(words), words.shape[0])
+    with tracing.span("detect.batch"):
+        words, _ = detect_batch_device(images, config, device=device)
+        return compact.split_frames(compact.words_to_points(words), words.shape[0])
 
 
 def detect_arrays(image: ImageLike, config: Optional[Config] = None, *, device="cuda") -> np.ndarray:

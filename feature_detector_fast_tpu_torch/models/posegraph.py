@@ -93,7 +93,7 @@ def _cg(matvec, b: torch.Tensor, iters: int, damping) -> torch.Tensor:
 
 @matmul_highest
 def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters: int = 50,
-             damping: float = 1e-6, robust_delta: float = 0.0
+             damping: float = 1e-6, robust_delta: float = 0.0, counts=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Levenberg-style Gauss-Newton.  Returns (poses, per-iteration cost).
 
@@ -106,7 +106,11 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     Damping is adaptive LM: ``damping`` seeds lambda; a rejected step
     multiplies it by 8, an accepted one divides it by 3.  Acceptance also
     needs a finite new cost.  The dense solver's Jacobian is forward mode:
-    reverse mode through se3_log near pi gave NaN in the JAX package."""
+    reverse mode through se3_log near pi gave NaN in the JAX package.
+
+    ``counts``, a ``tracing.span`` handle, gets ``steps`` (iterations) and
+    ``steps_accepted`` while a profiler records: one more kernel and one
+    copy a call then, nothing otherwise."""
     n = g.poses.shape[0]
     d2 = robust_delta * robust_delta
 
@@ -118,6 +122,7 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     poses = g.poses
     lam = torch.full((), damping, dtype=g.poses.dtype, device=g.poses.device)
     costs = []
+    accepted = [] if counts else None
     for _ in range(iterations):
         gg = g._replace(poses=poses)
         if robust_delta > 0.0:
@@ -153,6 +158,11 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
         poses = torch.where(better, new_poses, poses)
         lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-9), torch.clamp(lam * 8.0, max=1e8))
         costs.append(torch.where(better, new_r2, r2))
+        if accepted is not None:
+            accepted.append(better)
+    if accepted is not None:
+        counts.add("steps", iterations)
+        counts.add("steps_accepted", int(torch.stack(accepted).cpu().sum()))
     return poses, torch.stack(costs)
 
 

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..api import _device
+from ..utils import tracing
 from ..utils.metrics import ate_rmse
 from ..utils.precision import matmul_highest
 from . import ba as ba_lib
@@ -227,15 +228,17 @@ def estimate_pairs(batch: PairBatch, config: VOConfig, seed_offset: int = 0,
 
 @contextlib.contextmanager
 def _staged(times: Optional[dict], name: str):
-    """Add the wall seconds of the enclosed stage to ``times[name]`` (no-op
-    when ``times`` is None).  Stages end with a host fetch of their device
+    """The span ``vo.<name>`` around the enclosed stage, whose handle it
+    yields; also adds the stage's wall seconds to ``times[name]`` where
+    ``times`` is given.  Stages end with a host fetch of their device
     results, so a stage's time is launch + compute + readback."""
-    if times is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    yield
-    times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+    with tracing.span(f"vo.{name}") as stage:
+        if times is None:
+            yield stage
+            return
+        t0 = time.perf_counter()
+        yield stage
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _scatter_rows(dst: np.ndarray, idx: np.ndarray, rows: np.ndarray) -> np.ndarray:
@@ -280,44 +283,13 @@ def _fit_loop_batch(lbatch: PairBatch, k_cap: int) -> PairBatch:
                      lbatch.idx_b[:, :k_cap])
 
 
-def run_vo_matches(
-    pair_data: Sequence[Tuple[np.ndarray, ...]],
-    config: VOConfig,
-    loop_pairs: Optional[Sequence[Tuple]] = None,
-    metrics: Optional[list] = None,
-    ba_refine: bool = False,
-    mesh=None,
-    _internals: Optional[dict] = None,
-    stage_times: Optional[dict] = None,
-    *,
-    device="cuda",
-    dtype: torch.dtype = torch.float32,
-) -> np.ndarray:
-    """Geometric VO from per-pair normalized correspondences.
-
-    pair_data[k] = (pa, pb, valid[, idx_b]) for frames (k, k+1), in
-    normalized camera coordinates.  ``loop_pairs`` optionally adds
-    non-consecutive constraints (i, j, pa, pb, valid[, idx_b]), whose slots
-    are frame-i keypoint slots so their scale links against pair i's
-    depths.  Returns (F, 4, 4) world_T_cam poses (frame 0 at the identity)
-    after pose-graph optimization, in ``dtype``.  ``metrics``, if given,
-    gets one dict per pair and per accepted loop.  ``ba_refine=True`` then
-    refines the trajectory with ``refine_with_ba``, its solves distributed
-    over ``mesh`` (a ``parallel.mesh.Mesh``) when one is given.
-    ``_internals``, if given, receives what ``refine_with_ba`` takes: the
-    batch, the pair estimates, the pose graph's result, the loop links and
-    the rotation edges; and the pose graph as it was optimized (``graph``)."""
-    if len(pair_data) == 0:
-        return np.eye(4)[None]
-    dev = _device(device)
-    batch = _as_pair_batch(pair_data)
-    with _staged(stage_times, "odom_estimate_pairs"):
-        est = estimate_pairs(batch, config, device=dev, dtype=dtype)
-    if metrics is not None:
-        for k in range(batch.pa.shape[0]):
-            metrics.append({"pair": (k, k + 1), "matches": int(batch.valid[k].sum()),
-                            "inliers": int(est.inl[k].sum())})
-
+def _chained_graph(batch: PairBatch, est: PairEstimates, config: VOConfig,
+                   loop_pairs, metrics: Optional[list], stage_times: Optional[dict],
+                   dev: torch.device, dtype: torch.dtype):
+    """``run_vo_matches``' host part between the pair estimates and the pose
+    graph: the scale chain, the integrated odometry, the loop edges with
+    their drift solve, and the pose graph assembled on ``dev``.  Returns
+    (graph, BA's loop links, BA's rotation edges or None)."""
     scales = _chain_scales(est, batch.idx_b)
 
     # integrate odometry, world frame = camera 0:
@@ -537,11 +509,55 @@ def run_vo_matches(
         edge_T=put(np.stack(edge_T)), edge_valid=torch.ones(len(edge_i), dtype=torch.bool,
                                                             device=dev),
         edge_weight=put(edge_w))
-    has_loops = len(edge_i) > n - 1
-    with _staged(stage_times, "pose_graph"):
+    return g, ba_loop_links, rot_edges
+
+
+def run_vo_matches(
+    pair_data: Sequence[Tuple[np.ndarray, ...]],
+    config: VOConfig,
+    loop_pairs: Optional[Sequence[Tuple]] = None,
+    metrics: Optional[list] = None,
+    ba_refine: bool = False,
+    mesh=None,
+    _internals: Optional[dict] = None,
+    stage_times: Optional[dict] = None,
+    *,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> np.ndarray:
+    """Geometric VO from per-pair normalized correspondences.
+
+    pair_data[k] = (pa, pb, valid[, idx_b]) for frames (k, k+1), in
+    normalized camera coordinates.  ``loop_pairs`` optionally adds
+    non-consecutive constraints (i, j, pa, pb, valid[, idx_b]), whose slots
+    are frame-i keypoint slots so their scale links against pair i's
+    depths.  Returns (F, 4, 4) world_T_cam poses (frame 0 at the identity)
+    after pose-graph optimization, in ``dtype``.  ``metrics``, if given,
+    gets one dict per pair and per accepted loop.  ``ba_refine=True`` then
+    refines the trajectory with ``refine_with_ba``, its solves distributed
+    over ``mesh`` (a ``parallel.mesh.Mesh``) when one is given.
+    ``_internals``, if given, receives what ``refine_with_ba`` takes: the
+    batch, the pair estimates, the pose graph's result, the loop links and
+    the rotation edges; and the pose graph as it was optimized (``graph``)."""
+    if len(pair_data) == 0:
+        return np.eye(4)[None]
+    dev = _device(device)
+    batch = _as_pair_batch(pair_data)
+    with _staged(stage_times, "odom_estimate_pairs"):
+        est = estimate_pairs(batch, config, device=dev, dtype=dtype)
+    if metrics is not None:
+        for k in range(batch.pa.shape[0]):
+            metrics.append({"pair": (k, k + 1), "matches": int(batch.valid[k].sum()),
+                            "inliers": int(est.inl[k].sum())})
+
+    with tracing.span("vo.chain"):
+        g, ba_loop_links, rot_edges = _chained_graph(batch, est, config, loop_pairs, metrics,
+                                                     stage_times, dev, dtype)
+    has_loops = len(g.edge_i) > len(g.poses) - 1
+    with _staged(stage_times, "pose_graph") as stage:
         opt_poses, _ = posegraph.optimize(
             g, config.loop_pose_graph_iters if has_loops else config.pose_graph_iters, "dense",
-            robust_delta=config.loop_robust_delta if has_loops else 0.0)
+            robust_delta=config.loop_robust_delta if has_loops else 0.0, counts=stage)
         result = opt_poses.cpu().numpy()
     if _internals is not None:
         _internals.update(batch=batch, est=est, graph_poses=result.copy(),
@@ -560,19 +576,20 @@ def frontend_features(frames, config: VOConfig, *, device="cuda"
     K) bool).  Compute it once a sequence and pass it to both
     ``frontend_matches`` and ``propose_loop_closures``.  ``frames`` is a list
     of (H, W) u8 frames or an (F, H, W) u8 tensor already on the device."""
-    stack = frames if isinstance(frames, torch.Tensor) else np.stack(frames)
-    if config.pyramid_levels > 1:
-        from . import pyramid
+    with tracing.span("vo.frontend_features"):
+        stack = frames if isinstance(frames, torch.Tensor) else np.stack(frames)
+        if config.pyramid_levels > 1:
+            from . import pyramid
 
-        k_per = max(1, config.max_keypoints // config.pyramid_levels)
-        feats = [pyramid.detect_and_describe_multiscale(
-            im, config.threshold, config.count, k_per, n_levels=config.pyramid_levels,
-            device=device) for im in stack]
-        return tuple(torch.stack([getattr(f, name) for f in feats])
-                     for name in ("xy0", "desc", "valid"))
-    kps, desc, dvalid = brief.detect_and_describe_batch(
-        stack, config.threshold, config.count, config.max_keypoints, device=device)
-    return kps.xy, desc, dvalid
+            k_per = max(1, config.max_keypoints // config.pyramid_levels)
+            feats = [pyramid.detect_and_describe_multiscale(
+                im, config.threshold, config.count, k_per, n_levels=config.pyramid_levels,
+                device=device) for im in stack]
+            return tuple(torch.stack([getattr(f, name) for f in feats])
+                         for name in ("xy0", "desc", "valid"))
+        kps, desc, dvalid = brief.detect_and_describe_batch(
+            stack, config.threshold, config.count, config.max_keypoints, device=device)
+        return kps.xy, desc, dvalid
 
 
 def _match_normalized(config: VOConfig, xy_a, desc_a, valid_a, xy_b, desc_b, valid_b):
@@ -598,11 +615,12 @@ def frontend_matches(frames, config: VOConfig, features=None, *, device="cuda"
     coordinates: slot i is frame k's keypoint slot i, idx_b its matched
     keypoint slot of frame k+1.  One batched match of all pairs, one host
     copy.  ``features`` is ``frontend_features``' output, to reuse."""
-    xy, desc, dvalid = features if features is not None else frontend_features(
-        frames, config, device=device)
-    na, nb, ok, idx = _to_host(*_match_normalized(config, xy[:-1], desc[:-1], dvalid[:-1],
-                                                  xy[1:], desc[1:], dvalid[1:]))
-    return [(na[k], nb[k], ok[k], idx[k]) for k in range(len(frames) - 1)]
+    with tracing.span("vo.frontend_matches"):
+        xy, desc, dvalid = features if features is not None else frontend_features(
+            frames, config, device=device)
+        na, nb, ok, idx = _to_host(*_match_normalized(config, xy[:-1], desc[:-1], dvalid[:-1],
+                                                      xy[1:], desc[1:], dvalid[1:]))
+        return [(na[k], nb[k], ok[k], idx[k]) for k in range(len(frames) - 1)]
 
 
 def _frame_signatures(desc: torch.Tensor, dvalid: torch.Tensor) -> torch.Tensor:

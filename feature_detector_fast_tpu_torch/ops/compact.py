@@ -22,6 +22,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 WORD_BITS = 32
 
 
@@ -59,13 +61,14 @@ def words_to_points(words: torch.Tensor) -> torch.Tensor:
     (b, y, x) in row-major order, on the words' device."""
     if words.dim() != 3:
         raise ValueError(f"expected (B, H, n_words) words, got shape {tuple(words.shape)}")
-    nz = torch.nonzero(words)  # (M, 3): (b, y, j), lexicographic
-    bits = words[nz[:, 0], nz[:, 1], nz[:, 2]]
-    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
-    bitmat = (bits[:, None] >> shifts) & 1  # arithmetic shift; &1 keeps the bit
-    m, bit = torch.nonzero(bitmat, as_tuple=True)  # ascending word, then bit
-    row = nz[m]
-    return torch.stack((row[:, 0], row[:, 1], row[:, 2] * WORD_BITS + bit), dim=1)
+    with tracing.span("detect.decode"):
+        nz = torch.nonzero(words)  # (M, 3): (b, y, j), lexicographic
+        bits = words[nz[:, 0], nz[:, 1], nz[:, 2]]
+        shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+        bitmat = (bits[:, None] >> shifts) & 1  # arithmetic shift; &1 keeps the bit
+        m, bit = torch.nonzero(bitmat, as_tuple=True)  # ascending word, then bit
+        row = nz[m]
+        return torch.stack((row[:, 0], row[:, 1], row[:, 2] * WORD_BITS + bit), dim=1)
 
 
 def split_frames(points: torch.Tensor, batch: int) -> List[np.ndarray]:
@@ -73,6 +76,7 @@ def split_frames(points: torch.Tensor, batch: int) -> List[np.ndarray]:
     (N_i, 2) uint32 arrays of (x, y) rows.  The (x, y) columns and the
     per-frame counts are formed on the points' device, so only 8 bytes per
     keypoint cross to the host."""
-    counts = torch.bincount(points[:, 0], minlength=batch).cpu().numpy()
-    xy = points[:, [2, 1]].to(torch.int32).cpu().numpy().view(np.uint32)
-    return np.split(xy, np.cumsum(counts)[:-1])
+    with tracing.span("detect.split"):
+        counts = torch.bincount(points[:, 0], minlength=batch).cpu().numpy()
+        xy = points[:, [2, 1]].to(torch.int32).cpu().numpy().view(np.uint32)
+        return np.split(xy, np.cumsum(counts)[:-1])

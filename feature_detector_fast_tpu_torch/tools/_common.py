@@ -368,11 +368,12 @@ def dispatch_counts(fn: Callable, device: torch.device) -> dict:
     (memcpy / memset events), ``launch_calls`` (the host's kernel-launch API
     calls), host ``syncs`` (the warnings of
     ``torch.cuda.set_sync_debug_mode("warn")``, one a synchronizing call),
-    ``device_ms`` (the device events' summed durations) and ``wall_ms`` (one
-    call without the profiler, by the host clock up to a device
-    synchronisation), so ``1 - device_ms / wall_ms`` is the device's idle
-    share.  Each count is null where its source recorded nothing, and all
-    are null on the CPU."""
+    ``device_ms`` (the device events' summed durations, not the union of
+    their intervals) and ``wall_ms`` (another call, without the profiler, by
+    the host clock up to a device synchronisation).  The two come from two
+    calls and ``device_ms`` sums overlapping events, so they give no idle
+    share: the benchmark's ``device_idle_pct`` does.  Each count is null
+    where its source recorded nothing, and all are null on the CPU."""
     keys = ("kernels", "copies", "launch_calls", "syncs", "device_ms", "wall_ms")
     if device.type != "cuda":
         return dict.fromkeys(keys)
