@@ -62,7 +62,7 @@ launch counters zeroed just before it and read just after:
   by its first 128 and 64 frames, F=128 and the VO and BA phases.
 * threads, checkpoint, multihost, the dry run, debug and tracing
   (``dist_phase``): (g) ``posegraph.optimize`` in 4 threads on the card,
-  both solvers, equal to one thread's run, and both interleavings of two
+  both solvers, eager and replayed, equal to one thread's run, and both interleavings of two
   threads' ``tf32_off`` guards; (h) a checkpoint of CUDA tensors back
   bit-identical on the card; (i) ``multihost.initialize``,
   ``healthcheck`` (its latency printed), the wedged heartbeat and
@@ -104,6 +104,7 @@ exits non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -768,9 +769,11 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
     """Threads, checkpoint, multihost, the dry run, debug and tracing on the
     card:
 
-    (g) ``posegraph.optimize`` in 4 threads at once on a 24-pose float64
-        chain on the card, dense and CG solvers, each thread's result equal
-        to the single-thread run's (the forward-AD lock); both ``tf32_off``
+    (g) ``posegraph.optimize`` in 4 threads at once on float64 rings on the
+        card, dense and CG solvers, each result equal to the single-thread
+        run's: eager, a key of its own for every call (the forward-AD
+        lock); then one 24-pose key, captured (timed apart) and replayed,
+        alone and in 4 threads (the graph's lock); both ``tf32_off``
         interleavings of two threads from "high": "highest" (TF32 off)
         inside every guard, "high" after both exit;
     (h) ``checkpoint``: CUDA tensors (the dry run's BA step) and a numpy
@@ -808,54 +811,90 @@ def dist_phase(dev: torch.device, zero_counts, kernel_launches, g1080: np.ndarra
     out = {"card": smi}
 
     # (g) threaded geometry on the card.
-    n = 24
-    rng = np.random.default_rng(0)
-    xi = np.zeros((n, 6))
-    xi[:, 0], xi[:, 5] = 0.5, 2 * np.pi / n
-    step = lie.se3_exp(torch.from_numpy(xi + rng.normal(0, 0.02, xi.shape)).to(dev))
-    poses = [torch.eye(4, dtype=torch.float64, device=dev)]
-    for k in range(n - 1):
-        poses.append(poses[-1] @ step[k])
-    g = posegraph.PoseGraph(
-        torch.stack(poses), torch.arange(n, device=dev), (torch.arange(n, device=dev) + 1) % n,
-        lie.se3_exp(torch.from_numpy(np.tile(xi[:1], (n, 1))).to(dev)),
-        torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.float64, device=dev))
+    def ring(n: int) -> "posegraph.PoseGraph":
+        rng = np.random.default_rng(n)
+        xi = np.zeros((n, 6))
+        xi[:, 0], xi[:, 5] = 0.5, 2 * np.pi / n
+        step = lie.se3_exp(torch.from_numpy(xi + rng.normal(0, 0.02, xi.shape)).to(dev))
+        poses = [torch.eye(4, dtype=torch.float64, device=dev)]
+        for k in range(n - 1):
+            poses.append(poses[-1] @ step[k])
+        return posegraph.PoseGraph(
+            torch.stack(poses), torch.arange(n, device=dev),
+            (torch.arange(n, device=dev) + 1) % n,
+            lie.se3_exp(torch.from_numpy(np.tile(xi[:1], (n, 1))).to(dev)),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.ones(n, dtype=torch.float64, device=dev))
+
+    def in_threads(calls) -> tuple:
+        """Each thread's calls of ``calls[i]`` at once: (results, errors,
+        wall seconds)."""
+        results, errors = [None] * len(calls), []
+
+        def work(i: int) -> None:
+            try:
+                results[i] = [f() for f in calls[i]]
+                torch.cuda.synchronize()
+            except Exception as e:  # reported by the checks below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=work, args=(i,)) for i in range(len(calls))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300.0)
+        check(not any(t.is_alive() for t in ts), "posegraph threads did not finish")
+        return results, errors, time.perf_counter() - t0
+
+    def same(runs, want) -> bool:
+        return all(torch.equal(p, want[0]) and torch.equal(c, want[1]) for p, c in runs)
+
+    g = ring(24)
+    runs = DIST_THREADS * DIST_RUNS
     threads_out = {}
     for solver in ("dense", "cg"):
+        # Eager in threads: a key of its own for every call, so no call
+        # meets the device's previous key and none replays.
+        eager = [ring(25 + k) for k in range(runs)]
+        wants = [posegraph.optimize(e, 3, solver, 12) for e in eager]
+        results, errors, wall_eager = in_threads(
+            [[functools.partial(posegraph.optimize, eager[i * DIST_RUNS + r], 3, solver, 12)
+              for r in range(DIST_RUNS)] for i in range(DIST_THREADS)])
+        check(not errors, f"eager posegraph.optimize ({solver}) in threads raised: {errors}")
+        check(not errors and all(same(results[i][r:r + 1], wants[i * DIST_RUNS + r])
+                                 for i in range(DIST_THREADS) for r in range(DIST_RUNS)),
+              f"eager posegraph.optimize ({solver}) in a thread != the single-thread run")
+        # One key replayed: its third call in a row captures (timed apart),
+        # then one thread's replays and four threads'.
         want = posegraph.optimize(g, 3, solver, 12)
+        check(same([posegraph.optimize(g, 3, solver, 12)], want),
+              f"posegraph.optimize ({solver}): a second eager call != the first")
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(same([posegraph.optimize(g, 3, solver, 12)], want),
+              f"posegraph.optimize ({solver}): the capturing call != the eager call")
+        torch.cuda.synchronize()
+        capture = time.perf_counter() - t0
         t0 = time.perf_counter()
         for _ in range(DIST_RUNS):
             posegraph.optimize(g, 3, solver, 12)
         torch.cuda.synchronize()
         one = (time.perf_counter() - t0) / DIST_RUNS
-        results, errors = [None] * DIST_THREADS, []
-
-        def work(i: int) -> None:
-            try:
-                results[i] = [posegraph.optimize(g, 3, solver, 12) for _ in range(DIST_RUNS)]
-                torch.cuda.synchronize()
-            except Exception as e:  # reported by the check below
-                errors.append(e)
-
-        t0 = time.perf_counter()
-        ts = [threading.Thread(target=work, args=(i,)) for i in range(DIST_THREADS)]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join(300.0)
-        wall = time.perf_counter() - t0
-        check(not any(t.is_alive() for t in ts), f"posegraph threads ({solver}) did not finish")
+        results, errors, wall = in_threads(
+            [[functools.partial(posegraph.optimize, g, 3, solver, 12)] * DIST_RUNS
+             for _ in range(DIST_THREADS)])
         check(not errors, f"posegraph.optimize ({solver}) in threads raised: {errors}")
-        same = all(torch.equal(p, want[0]) and torch.equal(c, want[1])
-                   for runs in results for p, c in runs)
-        check(same, f"posegraph.optimize ({solver}) in a thread != the single-thread run")
-        threads_out[solver] = {"one_thread_s_per_run": one,
-                               "threads_wall_s": wall, "runs": DIST_THREADS * DIST_RUNS,
-                               "threads_s_per_run": wall / (DIST_THREADS * DIST_RUNS)}
-        log(f"dist (g): posegraph.optimize {solver} (24 poses, float64, 3 iterations) in "
-            f"{DIST_THREADS} threads x {DIST_RUNS} runs on {dev}: no error, every result == the "
-            f"single-thread run; {wall / (DIST_THREADS * DIST_RUNS):.4f} s a run in threads "
+        check(not errors and all(same(r, want) for r in results),
+              f"posegraph.optimize ({solver}) in a thread != the single-thread run")
+        threads_out[solver] = {"eager_threads_wall_s": wall_eager, "capture_s": capture,
+                               "one_thread_s_per_run": one,
+                               "threads_wall_s": wall, "runs": runs,
+                               "threads_s_per_run": wall / runs}
+        log(f"dist (g): posegraph.optimize {solver} (float64, 3 iterations) on {dev}, every "
+            f"result == the single-thread run: eager, {DIST_THREADS} threads x {DIST_RUNS} "
+            f"keys of 25-{24 + runs} poses in {wall_eager:.3f} s; one 24-pose key captured in "
+            f"{capture:.4f} s, then replayed {wall / runs:.4f} s a run in {DIST_THREADS} threads "
             f"({wall:.3f} s wall) vs {one:.4f} s a run alone ({smi})")
     out["threads"] = threads_out
 

@@ -12,12 +12,19 @@ minimizes sum_e || log(Z_e^-1 T_i^-1 T_j) ||^2_w.
     Jacobian, and matrix-free conjugate gradient on jvp / vjp products;
   * the gauge is fixed by masking pose 0's update;
   * acceptance and the LM schedule are ``torch.where`` on the device: no
-    host check inside the iterations.
+    host check inside the iterations;
+  * on a CUDA device a call replays one CUDA graph of all its iterations
+    where its key (the inputs' devices, dtypes and shapes, and every
+    argument but ``counts``) is that of the device's graph, and captures
+    that graph where it is the key's ``CAPTURE_AT``-th call in a row on the
+    device; any other call runs eagerly.  A device keeps one graph.  CPU
+    tensors always run eagerly.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import threading
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +98,13 @@ def _cg(matvec, b: torch.Tensor, iters: int, damping) -> torch.Tensor:
     return x
 
 
+#: The call of one key, counted in a row on a device, that captures its
+#: graph.  The tools run a key twice (warm-up and timed run), a loop graph's
+#: key comes once, and a capture costs about two eager calls: from the
+#: third call on, a key is one that a stream of problems repeats.
+CAPTURE_AT = 3
+
+
 @matmul_highest
 def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters: int = 50,
              damping: float = 1e-6, robust_delta: float = 0.0, counts=None
@@ -108,9 +122,46 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     needs a finite new cost.  The dense solver's Jacobian is forward mode:
     reverse mode through se3_log near pi gave NaN in the JAX package.
 
-    ``counts``, a ``tracing.span`` handle, gets ``steps`` (iterations) and
-    ``steps_accepted`` while a profiler records: one more kernel and one
-    copy a call then, nothing otherwise."""
+    On CUDA tensors the ``CAPTURE_AT``-th call in a row of a key (the
+    inputs' devices, dtypes and shapes and the other arguments) on a device
+    captures a CUDA graph of the whole call, in place of the device's graph,
+    and replays it; later calls of that key replay it: their inputs are
+    copied into the graph's static buffers and clones of its outputs
+    returned.  A capture that fails raises; a device-wide synchronisation
+    (``torch.cuda.synchronize``) by another thread while it records is
+    such a failure.
+
+    ``counts``, a ``tracing.span`` handle, gets ``calls``, ``graph_replays``
+    (calls answered by a replay, the capturing one included),
+    ``graph_captures``, and ``steps`` (iterations) and ``steps_accepted``
+    while a profiler records: one more kernel and one copy a call then,
+    nothing otherwise."""
+    args = (iterations, solver, cg_iters, damping, robust_delta)
+    replayed = None
+    if all(t.is_cuda for t in g):
+        key = (g.poses.device,) + tuple((t.device, t.dtype, t.shape) for t in g) + args
+        replayed = _GRAPHS.replay(key, g, args)
+    if replayed is None:
+        poses, costs, accepted = _steps(g, *args, flags=bool(counts))
+    else:
+        (poses, costs, accepted), captured = replayed
+    if counts is not None:
+        counts.add("calls")
+        if replayed is not None:
+            counts.add("graph_replays")
+            if captured:
+                counts.add("graph_captures")
+    if counts:
+        counts.add("steps", iterations)
+        counts.add("steps_accepted", int(accepted.cpu().sum()))
+    return poses, costs
+
+
+def _steps(g: PoseGraph, iterations: int, solver: str, cg_iters: int, damping: float,
+           robust_delta: float, flags: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """``optimize``'s iterations: (poses, per-iteration cost, and with
+    ``flags`` each step's acceptance, else None)."""
     n = g.poses.shape[0]
     d2 = robust_delta * robust_delta
 
@@ -122,7 +173,7 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     poses = g.poses
     lam = torch.full((), damping, dtype=g.poses.dtype, device=g.poses.device)
     costs = []
-    accepted = [] if counts else None
+    accepted = [] if flags else None
     for _ in range(iterations):
         gg = g._replace(poses=poses)
         if robust_delta > 0.0:
@@ -160,10 +211,92 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
         costs.append(torch.where(better, new_r2, r2))
         if accepted is not None:
             accepted.append(better)
-    if accepted is not None:
-        counts.add("steps", iterations)
-        counts.add("steps_accepted", int(torch.stack(accepted).cpu().sum()))
-    return poses, torch.stack(costs)
+    return poses, torch.stack(costs), None if accepted is None else torch.stack(accepted)
+
+
+class _Device:
+    """A device's CUDA graph: the key of its previous call and how many
+    calls in a row had it, the graph kept and its key, the side stream
+    captures use, and the event of the last replay."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.done = torch.cuda.Event()
+        self.last = self.key = self.graph = None
+        self.run = 0
+
+
+class _Graph:
+    """One ``_steps`` call as a CUDA graph: the static inputs it reads and
+    the static outputs (poses, costs, acceptance) each replay overwrites."""
+
+    def __init__(self, g: PoseGraph, args: tuple, dev: _Device):
+        self.dev = dev
+        self.inputs = PoseGraph(*(t.clone() for t in g))
+        caller = torch.cuda.current_stream(dev.stream.device)
+        dev.stream.wait_stream(caller)
+        # One step first on the capture stream, so that the capturing
+        # thread's library handles exist before capture.  cuBLAS keeps a
+        # workspace (32 MiB on Hopper) a handle and stream for the process's
+        # life: cleared after the step and after the capture, the capture
+        # stream's is allocated and freed inside the graph's own memory
+        # pool, and the graph holds no allocation beyond its static buffers.
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(dev.stream):
+            _steps(self.inputs, 1, *args[1:], flags=True)
+            torch._C._cuda_clearCublasWorkspaces()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = _steps(self.inputs, *args, flags=True)
+            finally:
+                self.graph.capture_end()
+        torch._C._cuda_clearCublasWorkspaces()
+        caller.wait_stream(dev.stream)
+
+    def replay(self, g: PoseGraph) -> Tuple[torch.Tensor, ...]:
+        """Copy-in, replay and clone-out on the caller's stream, after the
+        device's last replay, whichever stream that ran on."""
+        stream = torch.cuda.current_stream(self.dev.stream.device)
+        stream.wait_event(self.dev.done)
+        for static, t in zip(self.inputs, g):
+            static.copy_(t)
+        self.graph.replay()
+        out = tuple(t.clone() for t in self.outputs)
+        self.dev.done.record(stream)
+        return out
+
+
+class _Graphs:
+    """``optimize``'s CUDA graphs, one a device.  One lock covers lookup,
+    capture and replay: a graph's static buffers serve one call at a time."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.devices = {}
+
+    def replay(self, key: tuple, g: PoseGraph, args: tuple):
+        """(outputs, whether this call captured) of the call's replay, or
+        None where the call runs eagerly: its key is not the device's
+        graph's, and has come fewer than ``CAPTURE_AT`` times in a row."""
+        with self.lock:
+            dev = self.devices.get(key[0])
+            if dev is None:
+                dev = self.devices[key[0]] = _Device(key[0])
+            dev.run = dev.run + 1 if key == dev.last else 1
+            dev.last = key
+            captured = key != dev.key
+            if captured:
+                if dev.run < CAPTURE_AT:
+                    return None
+                if dev.graph is not None:
+                    # Its last replay ends before its memory is freed.
+                    dev.done.synchronize()
+                    dev.key = dev.graph = None
+                dev.graph, dev.key = _Graph(g, args, dev), key
+            return dev.graph.replay(g), captured
+
+
+_GRAPHS = _Graphs()
 
 
 @matmul_highest

@@ -256,7 +256,8 @@ def test_pose_graph_counts_equal_a_recount(noise):
         recount += int(not torch.equal(pk, prev))
         prev = pk
     assert torch.equal(prev, counted)
-    assert r.counts == {"steps": iters, "steps_accepted": recount}
+    # One call on the CPU: counted, and never a graph's replay.
+    assert r.counts == {"calls": 1, "steps": iters, "steps_accepted": recount}
     assert recount < iters and (recount > 0 or not noise)
 
 
