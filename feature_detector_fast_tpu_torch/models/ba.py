@@ -33,6 +33,11 @@ from torch.func import jacfwd, vmap
 from ..utils.precision import matmul_highest
 from . import lie
 
+#: The dtype in which a global (unbatched) problem's normal equations and the
+#: conjugate-gradient solve of its reduced camera system are formed, whatever
+#: the problem's own dtype (see ``_build_system``).
+GLOBAL_SOLVE_DTYPE = torch.float64
+
 
 class BAProblem(NamedTuple):
     poses: torch.Tensor  # (..., C, 4, 4) world -> camera
@@ -174,6 +179,16 @@ def _hll(p: BAProblem, Jl: torch.Tensor) -> torch.Tensor:
 
 def _build_system(p: BAProblem, damping, robust_delta: float = 0.0) -> _System:
     r, Jc, Jl = _jacobians(p, robust_delta)
+    if not _batch(p):
+        # A global problem's normal equations and the conjugate-gradient
+        # solve of its reduced camera system in GLOBAL_SOLVE_DTYPE (float64)
+        # whatever its dtype: the scale gauge is a null direction damped to
+        # 1e-4, and a fixed
+        # budget of float32 CG steps on that system amplifies rounding into
+        # steps that, over the LM iterations, end up to a quarter above the
+        # float64 solve's cost.  A batch of two-camera problems (the pair
+        # refit) converges within its budget and stays in its dtype.
+        r, Jc, Jl = (t.to(GLOBAL_SOLVE_DTYPE) for t in (r, Jc, Jl))
     nb = len(_batch(p))
     Hll = _hll(p, Jl) + damping * torch.eye(3, dtype=Jl.dtype, device=Jl.device)
     b_c = _segment_sum(torch.einsum("...oij,...oi->...oj", Jc, r), p.obs_cam,
@@ -275,9 +290,9 @@ def ba_step(p: BAProblem, damping, cg_iters: int, psum=None, psum_lm=None,
         wt_dc = psum_lm(wt_dc)
     delta_l = -torch.einsum("...lij,...lj->...li", sys.Hll_inv, b_l + wt_dc)
 
-    new_poses = lie.se3_exp(delta_c) @ p.poses
-    new_points = p.points + delta_l
-    cost = (sys.r * sys.r).sum((-2, -1))
+    new_poses = lie.se3_exp(delta_c.to(p.poses.dtype)) @ p.poses
+    new_points = p.points + delta_l.to(p.points.dtype)
+    cost = (sys.r * sys.r).sum((-2, -1)).to(p.poses.dtype)
     if psum is not None:
         cost = psum(cost)
     return new_poses, new_points, cost
@@ -308,11 +323,22 @@ def total_cost(p: BAProblem, robust_delta: float = 0.0) -> torch.Tensor:
 
 @matmul_highest
 def optimize(p: BAProblem, iterations: int = 10, cg_iters: int = 30, damping: float = 1e-4,
-             robust_delta: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             robust_delta: float = 0.0, counts=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LM-damped BA.  Returns (poses, points, per-iteration cost
     (iterations, ...)).  A step that raises a problem's cost is rejected for
     that problem (``torch.where``, no host check).  ``robust_delta`` > 0
-    switches to Huber-IRLS steps, accepted on the true Huber objective."""
+    switches to Huber-IRLS steps, accepted on the true Huber objective.
+
+    ``counts``, a ``tracing.span`` handle, gets ``solves`` (1), ``lm_steps``
+    (``iterations``) and ``cg_steps`` (``iterations * cg_iters``) while a
+    profiler records, host integers with no device work; the caller counts
+    ``lm_accepted`` from the returned costs (``lowered``) with its own
+    fetch of the result."""
+    if counts:
+        counts.add("solves")
+        counts.add("lm_steps", iterations)
+        counts.add("cg_steps", iterations * cg_iters)
     poses, points = p.poses, p.points
     costs = []
     for _ in range(iterations):
@@ -328,3 +354,13 @@ def optimize(p: BAProblem, iterations: int = 10, cg_iters: int = 30, damping: fl
         points = torch.where(better[..., None, None], new_points, points)
         costs.append(torch.minimum(c_new, c_old))
     return poses, points, torch.stack(costs)
+
+
+def lowered(costs: torch.Tensor, cost0: torch.Tensor) -> torch.Tensor:
+    """Which of ``optimize``'s steps lowered its returned cost: (iterations,
+    ...) bool, step k against step k - 1's cost and the first against
+    ``cost0``, the problem's cost at the start (``total_cost``).  On the
+    Huber route these are the accepted steps exactly: both sides of its
+    acceptance test are ``total_cost`` values, and a rejected step returns
+    the cost it kept."""
+    return costs < torch.cat([cost0[None], costs[:-1]])

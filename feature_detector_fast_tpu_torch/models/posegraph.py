@@ -7,9 +7,9 @@ minimizes sum_e || log(Z_e^-1 T_i^-1 T_j) ||^2_w.
   * fixed-capacity edge tensors with validity bits;
   * residuals and Jacobians by automatic differentiation of the local
     parameterization T_i <- exp(delta_i) T_i at delta = 0;
-  * two solvers: dense normal equations (one ``torch.linalg.solve_ex``,
-    which leaves its error check on the device) with a forward-mode
-    Jacobian, and matrix-free conjugate gradient on jvp / vjp products;
+  * two solvers: dense normal equations (formed and solved in float64 by
+    one ``torch.linalg.solve_ex``, which leaves its error check on the
+    device) with a forward-mode Jacobian, and matrix-free conjugate gradient on jvp / vjp products;
   * the gauge is fixed by masking pose 0's update;
   * acceptance and the LM schedule are ``torch.where`` on the device: no
     host check inside the iterations;
@@ -32,6 +32,10 @@ from torch.func import jacfwd, jvp, vjp
 
 from ..utils.precision import matmul_highest
 from . import lie
+
+#: The dtype in which the dense solver forms and solves its normal equations,
+#: whatever the poses' dtype (see ``_steps``).
+SOLVE_DTYPE = torch.float64
 
 
 class PoseGraph(NamedTuple):
@@ -190,8 +194,16 @@ def _steps(g: PoseGraph, iterations: int, solver: str, cg_iters: int, damping: f
                 J = jacfwd(lambda d: _residual_of_delta(d, gg))(zero)
             J = J.reshape(r0.numel(), n * 6)
             r2 = (r0 * r0).sum()
-            H = J.T @ J + lam * torch.eye(n * 6, dtype=poses.dtype, device=poses.device)
-            delta = -torch.linalg.solve_ex(H, J.T @ r0)[0].reshape(n, 6)
+            # The normal equations in SOLVE_DTYPE (float64) whatever the
+            # poses' dtype: a loop graph's J^T J reaches a condition of ~1e11,
+            # past which a float32 product and solve return its weak modes'
+            # steps as rounding noise, and the robust steps wander off the
+            # optimum.
+            Jd = J.to(SOLVE_DTYPE)
+            H = Jd.T @ Jd + lam.to(SOLVE_DTYPE) * torch.eye(n * 6, dtype=SOLVE_DTYPE,
+                                                            device=poses.device)
+            delta = -torch.linalg.solve_ex(H, Jd.T @ r0.to(SOLVE_DTYPE))[0].to(poses.dtype)
+            delta = delta.reshape(n, 6)
         else:  # "cg"
             jtj_v, jtr, r2 = _normal_system(gg)
             delta = -_cg(jtj_v, jtr, cg_iters, lam)

@@ -646,39 +646,41 @@ def propose_loop_closures(frames, config: VOConfig, gap: int = 5, min_matches: i
 
     ``top_k`` gates the O(F^2) enumeration by frame signatures: frame i
     matches only its ``top_k`` most signature-similar partners j >= i + gap.
-    None is exhaustive up to 64 frames and 8 beyond; 0 forces exhaustive."""
-    f = len(frames)
-    if top_k is None:
-        top_k = 0 if f <= 64 else 8
-    xy, desc, dvalid = features if features is not None else frontend_features(
-        frames, config, device=device)
-    if top_k:
-        sig = _frame_signatures(desc, dvalid).cpu().numpy()
-        sig = sig - sig.mean(axis=0)  # centre: shared-background bits
-        nrm = np.linalg.norm(sig, axis=1)
-        sim = (sig @ sig.T) / np.maximum(np.outer(nrm, nrm), 1e-9)
-        cand = []
-        for i in range(f):
-            js = np.arange(i + gap, f)
-            if js.size == 0:
-                continue
-            order = js[np.argsort(-sim[i, js])][: int(top_k)]
-            cand.extend((i, int(j)) for j in np.sort(order))
-    else:
-        cand = [(i, j) for i in range(f) for j in range(i + gap, f)]
-    if not cand:
-        return []
-    ii = torch.as_tensor([c[0] for c in cand], device=xy.device)
-    jj = torch.as_tensor([c[1] for c in cand], device=xy.device)
-    parts = []
-    for s in range(0, len(cand), chunk):
-        a, b = ii[s:s + chunk], jj[s:s + chunk]
-        parts.append(_match_normalized(config, xy[a], desc[a], dvalid[a], xy[b], desc[b],
-                                       dvalid[b]))
-    na, nb, ok, idx = _to_host(*(torch.cat(x) for x in zip(*parts)))
-    counts = ok.sum(axis=1)
-    return [(cand[c][0], cand[c][1], na[c], nb[c], ok[c], idx[c])
-            for c in range(len(cand)) if counts[c] >= min_matches]
+    None is exhaustive up to 64 frames and 8 beyond; 0 forces exhaustive.
+    The call is the span ``vo.loop_propose``."""
+    with tracing.span("vo.loop_propose"):
+        f = len(frames)
+        if top_k is None:
+            top_k = 0 if f <= 64 else 8
+        xy, desc, dvalid = features if features is not None else frontend_features(
+            frames, config, device=device)
+        if top_k:
+            sig = _frame_signatures(desc, dvalid).cpu().numpy()
+            sig = sig - sig.mean(axis=0)  # centre: shared-background bits
+            nrm = np.linalg.norm(sig, axis=1)
+            sim = (sig @ sig.T) / np.maximum(np.outer(nrm, nrm), 1e-9)
+            cand = []
+            for i in range(f):
+                js = np.arange(i + gap, f)
+                if js.size == 0:
+                    continue
+                order = js[np.argsort(-sim[i, js])][: int(top_k)]
+                cand.extend((i, int(j)) for j in np.sort(order))
+        else:
+            cand = [(i, j) for i in range(f) for j in range(i + gap, f)]
+        if not cand:
+            return []
+        ii = torch.as_tensor([c[0] for c in cand], device=xy.device)
+        jj = torch.as_tensor([c[1] for c in cand], device=xy.device)
+        parts = []
+        for s in range(0, len(cand), chunk):
+            a, b = ii[s:s + chunk], jj[s:s + chunk]
+            parts.append(_match_normalized(config, xy[a], desc[a], dvalid[a], xy[b], desc[b],
+                                           dvalid[b]))
+        na, nb, ok, idx = _to_host(*(torch.cat(x) for x in zip(*parts)))
+        counts = ok.sum(axis=1)
+        return [(cand[c][0], cand[c][1], na[c], nb[c], ok[c], idx[c])
+                for c in range(len(cand)) if counts[c] >= min_matches]
 
 
 def run_vo_images(frames, config: VOConfig, *, loop_closure_gap: Optional[int] = None,
@@ -829,7 +831,10 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
     Schur reductions summed across the shards, ``parallel.ba_sharded``).
     The solves run on ``device`` in ``dtype``; each ends with one host
     fetch.  ``stage_times`` keys: ``tracks_host``, ``rotation_avg``,
-    ``triangulate_gate_host``, ``ba_solve``."""
+    ``triangulate_gate_host``, ``ba_solve``.  While a profiler records, each
+    ``vo.ba_solve`` span of a one-device global solve counts ``ba.optimize``'s
+    ``solves``, ``lm_steps`` and ``cg_steps``, and ``lm_accepted``, the steps
+    that lowered the cost, read in the same fetch as the result."""
     dev = _device(device)
     with _staged(stage_times, "tracks_host"):
         obs_cam, obs_lm, obs_uv = build_tracks(batch, est, loop_links=loop_links)
@@ -854,7 +859,7 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
     def put(x, dt=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
 
-    def solve(w2c, pts, valid, iters, cg, delta):
+    def solve(w2c, pts, valid, iters, cg, delta, counts=None):
         # Only camera 0 is fixed: pinning a second (noisy) camera would
         # anchor BA to its error; the scale gauge is a damped null direction.
         problem = ba_lib.BAProblem(put(w2c), put(pts), put(obs_cam, torch.int64),
@@ -864,9 +869,16 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
             from ..parallel import ba_sharded
 
             new_w2c, _, _ = ba_sharded.optimize_sharded(problem, iters, cg, 1e-4, delta, mesh=mesh)
-        else:
-            new_w2c, _, _ = ba_lib.optimize(problem, iters, cg, 1e-4, delta)
-        return np.linalg.inv(new_w2c.cpu().numpy())
+            return np.linalg.inv(new_w2c.cpu().numpy())
+        new_w2c, _, costs = ba_lib.optimize(problem, iters, cg, 1e-4, delta, counts=counts)
+        if not counts:
+            return np.linalg.inv(new_w2c.cpu().numpy())
+        # While a profiler records, the steps that lowered the cost come back
+        # in the result's one fetch.
+        flags = ba_lib.lowered(costs, ba_lib.total_cost(problem, delta))
+        host = torch.cat([new_w2c.reshape(-1), flags.to(new_w2c.dtype)]).cpu().numpy()
+        counts.add("lm_accepted", int(host[new_w2c.numel():].sum()))
+        return np.linalg.inv(host[:new_w2c.numel()].reshape(new_w2c.shape))
 
     if loop_links is not None and len(loop_links) > 0:
         cur = np.array(poses)
@@ -881,9 +893,9 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
         for _ in range(int(loop_ba_rounds)):
             with _staged(stage_times, "triangulate_gate_host"):
                 w2c, pts, valid = gated_problem(cur)
-            with _staged(stage_times, "ba_solve"):
+            with _staged(stage_times, "ba_solve") as stage:
                 cur = solve(w2c, pts, valid, int(loop_ba_iters), int(loop_cg_iters),
-                            float(robust_delta))
+                            float(robust_delta), counts=stage)
         return cur
 
     with _staged(stage_times, "triangulate_gate_host"):
@@ -899,8 +911,8 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
                 dtype=dtype)
         return np.linalg.inv(new_w2c)
 
-    with _staged(stage_times, "ba_solve"):
-        return solve(w2c, pts, valid, int(iterations), int(cg_iters), 0.0)
+    with _staged(stage_times, "ba_solve") as stage:
+        return solve(w2c, pts, valid, int(iterations), int(cg_iters), 0.0, counts=stage)
 
 
 def evaluate_ate(est_poses: np.ndarray, gt_poses: np.ndarray) -> float:

@@ -23,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from feature_detector_fast_tpu_torch import api
 from feature_detector_fast_tpu_torch.config import Config
-from feature_detector_fast_tpu_torch.models import lie, posegraph, slam
+from feature_detector_fast_tpu_torch.models import ba, lie, posegraph, slam
 from feature_detector_fast_tpu_torch.utils import tracing
 
 JOIN_S = 60.0
@@ -177,9 +177,10 @@ def test_detection_spans():
     assert not any(e.name().startswith("detect.") for e in prof.profiler.kineto_results.events())
 
 
-def _pairs(n_frames=5, n_pts=200, seed=0):
-    """Normalized correspondences of a short synthetic trajectory; slot i
-    is landmark i."""
+def _projections(n_frames=5, n_pts=200, seed=0, noise=0.0):
+    """(normalized points, visible) of each frame of a short synthetic
+    trajectory, each point moved by Gaussian ``noise``; slot i is landmark
+    i."""
     rng = np.random.default_rng(seed)
     lm = np.stack([rng.uniform(-6, 10, n_pts), rng.uniform(-4, 4, n_pts),
                    rng.uniform(4, 22, n_pts)], -1)
@@ -192,7 +193,14 @@ def _pairs(n_frames=5, n_pts=200, seed=0):
     for T in poses:
         Xc = (np.linalg.inv(T) @ np.concatenate([lm, np.ones((n_pts, 1))], 1).T).T[:, :3]
         p = Xc[:, :2] / np.maximum(Xc[:, 2:3], 1e-9)
-        projs.append((p, (Xc[:, 2] > 0.5) & (np.abs(p) < 0.7).all(1)))
+        projs.append((p + rng.normal(0.0, noise, p.shape) if noise else p,
+                      (Xc[:, 2] > 0.5) & (np.abs(p) < 0.7).all(1)))
+    return projs
+
+
+def _pairs(n_frames=5, n_pts=200, seed=0):
+    """Normalized correspondences of consecutive frames of ``_projections``."""
+    projs = _projections(n_frames, n_pts, seed)
     return [(projs[k][0], projs[k + 1][0], projs[k][1] & projs[k + 1][1])
             for k in range(n_frames - 1)]
 
@@ -223,6 +231,65 @@ def test_vo_stages_are_spans_and_still_fill_stage_times():
     starts = [rec[n][0].start_ns for n in ("vo.odom_estimate_pairs", "vo.chain",
                                            "vo.pose_graph")]
     assert starts == sorted(starts)
+
+
+def test_loop_propose_and_ba_solve_counts(monkeypatch):
+    """``propose_loop_closures`` is the span ``vo.loop_propose``.  With a
+    loop closed, each ``vo.ba_solve`` of the Huber route counts one solve,
+    its LM and CG steps, and ``lm_accepted`` equal to a recount from
+    ``ba.optimize``'s returned costs (a step counts where it lowered the
+    cost, the first against the problem's cost at the start) and to the
+    steps after which the poses changed (a rejected step keeps them bit for
+    bit); off, nothing is counted and the result is the same."""
+    rng = np.random.default_rng(5)
+    feats = (torch.from_numpy(rng.integers(0, 64, (12, 32, 2), dtype=np.int32)),
+             torch.from_numpy(rng.integers(-2**31, 2**31, (12, 32, 8), dtype=np.int32)),
+             torch.ones(12, 32, dtype=torch.bool))
+    with cpu_profile():
+        slam.propose_loop_closures([None] * 12, slam.VOConfig(), gap=4, features=feats,
+                                   device="cpu")
+    assert set(by_name(tracing.spans())) == {"vo.loop_propose"}
+    tracing.clear()
+
+    n = 5
+    projs = _projections(n, noise=2e-3)
+    pd = [(projs[k][0], projs[k + 1][0], projs[k][1] & projs[k + 1][1]) for k in range(n - 1)]
+    seen = projs[0][1] & projs[n - 1][1]
+    loop = (0, n - 1, projs[0][0], projs[n - 1][0], seen,
+            np.where(seen, np.arange(len(seen)), -1).astype(np.int32))
+    cfg = slam.VOConfig(ransac_hypotheses=32)
+    calls = []
+    real = ba.optimize
+
+    def keep(p, *a, **k):
+        out = real(p, *a, **k)
+        calls.append((p, a, out))
+        return out
+
+    monkeypatch.setattr(ba, "optimize", keep)
+    want = slam.run_vo_matches(pd, cfg, loop_pairs=[loop], ba_refine=True, device="cpu")
+    calls.clear()
+    with cpu_profile():
+        got = slam.run_vo_matches(pd, cfg, loop_pairs=[loop], ba_refine=True, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    solves = [(p, a, out) for p, a, out in calls if p.poses.dim() == 3]
+    records = by_name(tracing.spans())["vo.ba_solve"]
+    assert len(records) == len(solves) == 2
+    for r, (p, (iters, cg, damping, delta), (_, _, costs)) in zip(records, solves):
+        prev, recount = float(ba.total_cost(p, delta)), 0
+        for c in costs.tolist():
+            recount += c < prev
+            prev = c
+        assert r.counts == {"solves": 1, "lm_steps": iters, "cg_steps": iters * cg,
+                            "lm_accepted": recount}
+        assert 0 < recount <= iters
+    p, (iters, cg, damping, delta), _ = solves[0]
+    before, changed = p.poses, 0
+    for k in range(1, iters + 1):
+        after = real(p, k, cg, damping, delta)[0]
+        changed += not torch.equal(after, before)
+        before = after
+    assert changed == records[0].counts["lm_accepted"]
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.05])
