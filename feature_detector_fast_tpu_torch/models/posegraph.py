@@ -18,7 +18,9 @@ minimizes sum_e || log(Z_e^-1 T_i^-1 T_j) ||^2_w.
     argument but ``counts``) is that of the device's graph, and captures
     that graph where it is the key's ``CAPTURE_AT``-th call in a row on the
     device; any other call runs eagerly.  A device keeps one graph.  CPU
-    tensors always run eagerly.
+    tensors always run eagerly.  An ``edge_capacity`` pads the edges to a
+    fixed count first, so that graphs with different edge counts share a
+    key.
 """
 
 from __future__ import annotations
@@ -109,10 +111,31 @@ def _cg(matvec, b: torch.Tensor, iters: int, damping) -> torch.Tensor:
 CAPTURE_AT = 3
 
 
+def _pad_edges(g: PoseGraph, capacity: Optional[int]) -> PoseGraph:
+    """``g`` with its edges padded to ``capacity`` slots (None: as it is).
+    Each padded slot repeats edge 0's ends and measurement, invalid and of
+    weight 0, so its residual and Jacobian rows are a finite value times 0:
+    exactly zero.  (An identity measurement could give a NaN tangent from
+    ``se3_log`` at zero angle, and NaN times 0 is NaN.)  Raises ValueError
+    where ``capacity`` is below the edge count."""
+    e = g.edge_i.shape[0]
+    if capacity is None or capacity == e:
+        return g
+    if capacity < e:
+        raise ValueError(f"edge_capacity {capacity} is below the graph's {e} edges")
+
+    def pad(t: torch.Tensor, fill=None) -> torch.Tensor:
+        head = t[:1] if fill is None else torch.full_like(t[:1], fill)
+        return torch.cat([t, head.expand(capacity - e, *t.shape[1:])])
+
+    return g._replace(edge_i=pad(g.edge_i), edge_j=pad(g.edge_j), edge_T=pad(g.edge_T),
+                      edge_valid=pad(g.edge_valid, False), edge_weight=pad(g.edge_weight, 0.0))
+
+
 @matmul_highest
 def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters: int = 50,
-             damping: float = 1e-6, robust_delta: float = 0.0, counts=None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             damping: float = 1e-6, robust_delta: float = 0.0, counts=None,
+             edge_capacity: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Levenberg-style Gauss-Newton.  Returns (poses, per-iteration cost).
 
     ``robust_delta`` > 0 enables robust IRLS: each iteration reweights edge
@@ -135,16 +158,23 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     (``torch.cuda.synchronize``) by another thread while it records is
     such a failure.
 
+    ``edge_capacity``, where given, pads the edges to that many slots
+    before the key is taken (``_pad_edges``): graphs of one pose count whose
+    edge counts differ then share a key, and the padded slots add rows of
+    zeros.  The returned shapes are those of the unpadded call.
+
     ``counts``, a ``tracing.span`` handle, gets ``calls``, ``graph_replays``
     (calls answered by a replay, the capturing one included),
-    ``graph_captures``, and ``steps`` (iterations) and ``steps_accepted``
-    while a profiler records: one more kernel and one copy a call then,
-    nothing otherwise."""
+    ``graph_captures``, and ``steps`` (iterations), ``steps_accepted``,
+    ``edges`` (the graph's) and ``edge_slots`` (after padding) while a
+    profiler records: one more kernel and one copy a call then, nothing
+    otherwise."""
+    edges = g.edge_i.shape[0]
+    g = _pad_edges(g, edge_capacity)
     args = (iterations, solver, cg_iters, damping, robust_delta)
     replayed = None
     if all(t.is_cuda for t in g):
-        key = (g.poses.device,) + tuple((t.device, t.dtype, t.shape) for t in g) + args
-        replayed = _GRAPHS.replay(key, g, args)
+        replayed = _GRAPHS.replay(_graph_key(g, args), g, args)
     if replayed is None:
         poses, costs, accepted = _steps(g, *args, flags=bool(counts))
     else:
@@ -158,6 +188,8 @@ def optimize(g: PoseGraph, iterations: int = 10, solver: str = "dense", cg_iters
     if counts:
         counts.add("steps", iterations)
         counts.add("steps_accepted", int(accepted.cpu().sum()))
+        counts.add("edges", edges)
+        counts.add("edge_slots", g.edge_i.shape[0])
     return poses, costs
 
 
@@ -224,6 +256,12 @@ def _steps(g: PoseGraph, iterations: int, solver: str, cg_iters: int, damping: f
         if accepted is not None:
             accepted.append(better)
     return poses, torch.stack(costs), None if accepted is None else torch.stack(accepted)
+
+
+def _graph_key(g: PoseGraph, args: tuple) -> tuple:
+    """A call's CUDA-graph key: its device, each input's device, dtype and
+    shape, and ``optimize``'s other arguments but ``counts``."""
+    return (g.poses.device,) + tuple((t.device, t.dtype, t.shape) for t in g) + args
 
 
 class _Device:

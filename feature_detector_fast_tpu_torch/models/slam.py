@@ -538,7 +538,8 @@ def run_vo_matches(
     over ``mesh`` (a ``parallel.mesh.Mesh``) when one is given.
     ``_internals``, if given, receives what ``refine_with_ba`` takes: the
     batch, the pair estimates, the pose graph's result, the loop links and
-    the rotation edges; and the pose graph as it was optimized (``graph``)."""
+    the rotation edges; and the pose graph as it was assembled, before the
+    optimizer pads a loop graph's edges (``graph``)."""
     if len(pair_data) == 0:
         return np.eye(4)[None]
     dev = _device(device)
@@ -554,10 +555,19 @@ def run_vo_matches(
         g, ba_loop_links, rot_edges = _chained_graph(batch, est, config, loop_pairs, metrics,
                                                      stage_times, dev, dtype)
     has_loops = len(g.edge_i) > len(g.poses) - 1
+    capacity = None
+    if has_loops:
+        # A loop pair adds at most one edge, and none below the minimum gap:
+        # padded to the next power of two of that bound, sequences of one
+        # length and pair count share the optimizer's CUDA graph whichever
+        # loops they accept.
+        far = sum(int(e[1]) - int(e[0]) >= config.loop_edge_min_gap for e in loop_pairs)
+        capacity = 1 << (len(g.poses) - 2 + far).bit_length()
     with _staged(stage_times, "pose_graph") as stage:
         opt_poses, _ = posegraph.optimize(
             g, config.loop_pose_graph_iters if has_loops else config.pose_graph_iters, "dense",
-            robust_delta=config.loop_robust_delta if has_loops else 0.0, counts=stage)
+            robust_delta=config.loop_robust_delta if has_loops else 0.0, counts=stage,
+            edge_capacity=capacity)
         result = opt_poses.cpu().numpy()
     if _internals is not None:
         _internals.update(batch=batch, est=est, graph_poses=result.copy(),

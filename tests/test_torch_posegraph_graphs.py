@@ -2,9 +2,10 @@
 
 On the CPU every call runs eagerly and only ``calls`` is counted.  The
 graph cache's bookkeeping (a capture at a key's ``CAPTURE_AT``-th call in
-a row on a device, one graph a device) is held here with stand-ins
-for the CUDA parts.  The tests marked ``cuda`` run the real
-graphs on a card and skip where there is none:
+a row on a device, one graph a device, one key for loop graphs padded to
+one edge capacity) is held here with stand-ins for the CUDA parts.  The
+tests marked ``cuda`` run the real graphs on a card and skip where there
+is none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_posegraph_graphs.py -q
 
@@ -12,16 +13,32 @@ There a replay equals the eager call bit for bit: the same kernels in the
 same order on the same inputs.
 """
 
+import os
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import se3
+from benchmark.reference import slam as ref_slam
 from feature_detector_fast_tpu_torch.models import lie, posegraph
 from feature_detector_fast_tpu_torch.utils import precision
 
 JOIN_S = 300.0
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "loop_graphs_vga64.npz")
+#: The SLAM cell's loop graph call: 40 robust dense steps.
+LOOP_ARGS = (40, "dense", 50, 1e-6, 0.25)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two host threads: the cell-size solves below, beside other test
+    workers each on every core, ran 20-30x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 class Counts:
@@ -75,6 +92,14 @@ def chain(n: int, seed: int, loops: int = 0, dtype=torch.float64, device="cpu"
         torch.from_numpy(rng.uniform(0.5, 1.5, e)).to(device, dtype))
 
 
+def cell_graph(which: str, device="cpu") -> posegraph.PoseGraph:
+    """Loop graph ``which`` ("a": 259 edges, "b": 309) of the SLAM cell's
+    64 frames, float32, as the program assembled it on the card."""
+    data = np.load(DATA)
+    return posegraph.PoseGraph(*(torch.as_tensor(data[f"{which}_{k}"]).to(device)
+                                 for k in posegraph.PoseGraph._fields))
+
+
 @precision.matmul_highest
 def eager(g: posegraph.PoseGraph, *args):
     """(poses, costs) of the eager path, as ``optimize`` runs it."""
@@ -97,6 +122,57 @@ def test_cpu_calls_run_eagerly(solver, robust):
         assert counts.read("graph_captures", "graph_replays", "calls") == (0, 0, k + 1)
     assert counts.counts["steps"] == 3 * 6
     assert posegraph._GRAPHS.devices == devices
+
+
+def test_edge_capacity_at_or_below_the_edge_count():
+    """A capacity equal to the edge count leaves the call as it is, bit
+    for bit; one below it raises."""
+    g = chain(10, 0, loops=3)
+    args = (6, "dense", 12, 1e-6, 0.25)
+    want = posegraph.optimize(g, *args)
+    assert same(posegraph.optimize(g, *args, edge_capacity=12), want)
+    with pytest.raises(ValueError, match="edge_capacity 11"):
+        posegraph.optimize(g, *args, edge_capacity=11)
+
+
+def test_padded_edges_are_counted():
+    """While a profiler records, ``edges`` counts the graph's edges and
+    ``edge_slots`` the slots after padding; the poses and costs keep the
+    unpadded call's shapes."""
+    g = chain(10, 0, loops=3)
+    counts = Counts()
+    poses, costs = posegraph.optimize(g, 2, "dense", robust_delta=0.25, counts=counts,
+                                      edge_capacity=16)
+    assert poses.shape == (10, 4, 4) and costs.shape == (2,)
+    posegraph.optimize(g, 2, "dense", robust_delta=0.25, counts=counts)
+    assert counts.read("edges", "edge_slots", "calls") == (24, 28, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_padded_loop_graph_is_the_same_graph(which, dtype):
+    """The cell's loop graphs with their edges padded to 512 slots, as
+    ``run_vo_matches`` pads them, at the cell's 40 robust steps: in float64
+    the padded call's poses lie within 1e-9 of the unpadded call's and its
+    costs within rtol 1e-9 (the padded rows are exact zeros; a, b: poses
+    5.5e-12, 7.0e-14 apart, costs 4.6e-13, 3.1e-12); in float32 it still
+    follows the float64 reference within 1e-3 of a radian in every link and
+    of the path, as the unpadded call does (links 3.6e-6, 1.1e-4 read)."""
+    g = cell_graph(which)
+    g = posegraph.PoseGraph(*(t.to(dtype) if t.is_floating_point() else t for t in g))
+    got, costs = posegraph.optimize(g, *LOOP_ARGS, edge_capacity=512)
+    if dtype == torch.float64:
+        want, want_costs = posegraph.optimize(g, *LOOP_ARGS)
+        assert float((got - want).abs().max()) < 1e-9
+        np.testing.assert_allclose(costs.numpy(), want_costs.numpy(), rtol=1e-9)
+        return
+    want, _ = ref_slam.pose_graph(*g, 40, 0.25)
+    got = got.double()
+    link = se3.angle((got[:-1, :3, :3].transpose(1, 2) @ got[1:, :3, :3]).transpose(1, 2)
+                     @ (want[:-1, :3, :3].transpose(1, 2) @ want[1:, :3, :3]))
+    path = float(torch.linalg.vector_norm(want[1:, :3, 3] - want[:-1, :3, 3], dim=1).sum())
+    centre = torch.linalg.vector_norm(got[:, :3, 3] - want[:, :3, 3], dim=1) / path
+    assert float(link.max()) < 1e-3 and float(centre.max()) < 1e-3
 
 
 class _FakeEvent:
@@ -161,6 +237,23 @@ def test_graph_cache_captures_on_the_third_call_in_a_row(fake_graphs):
     assert len(fake_graphs.devices) == 1
 
 
+@pytest.mark.parametrize("capacity", [512, None])
+def test_padded_loop_graphs_share_a_key(fake_graphs, capacity):
+    """The cell's loop graphs a, b, a: padded to 512 edge slots they share
+    one key, so the third call captures and every later one replays;
+    unpadded (259, 309 edges) their keys alternate and never capture."""
+    a, b = cell_graph("a"), cell_graph("b")
+    calls = [posegraph._pad_edges(g, capacity) for g in (a, b, a, b, a)]
+    keys = [posegraph._graph_key(g, LOOP_ARGS) for g in calls]
+    got = [fake_graphs.replay(k, g, LOOP_ARGS) for k, g in zip(keys, calls)]
+    if capacity is None:
+        assert len(set(keys)) == 2 and got == [None] * 5
+    else:
+        assert len(set(keys)) == 1
+        assert got[:2] == [None, None] and got[2] == ((calls[2].poses, 1), True)
+        assert got[3:] == [((calls[3].poses, 1), False), ((calls[4].poses, 1), False)]
+
+
 def test_graph_cache_keeps_one_graph_a_device(fake_graphs):
     """Keys that alternate, or come twice in a row, never capture; nine
     keys each called three times in a row leave one graph a device, each
@@ -216,6 +309,21 @@ def test_replay_equals_eager(device, name, n, loops, args):
     for _ in range(5):
         assert same(posegraph.optimize(g, *args, counts=counts), want)
     assert counts.read("graph_captures", "graph_replays", "calls") == (1, 3, 5)
+
+
+@pytest.mark.cuda
+def test_padded_replay_takes_another_graph(device):
+    """The cell's loop graph a, padded to 512 slots, captured at its third
+    call; then b (309 edges, padded to the same 512) is answered by that
+    graph's replay, and equals b's padded eager call bit for bit."""
+    a, b = cell_graph("a", device), cell_graph("b", device)
+    want = eager(posegraph._pad_edges(b, 512), *LOOP_ARGS)
+    counts = Counts()
+    for _ in range(3):
+        posegraph.optimize(a, *LOOP_ARGS, counts=counts, edge_capacity=512)
+    assert same(posegraph.optimize(b, *LOOP_ARGS, counts=counts, edge_capacity=512), want)
+    assert counts.read("graph_captures", "graph_replays", "calls") == (1, 2, 4)
+    assert counts.read("edges", "edge_slots") == (3 * 259 + 309, 4 * 512)
 
 
 @pytest.mark.cuda

@@ -33,7 +33,7 @@ import torch
 from feature_detector_fast_tpu.io import render as jrender
 from feature_detector_fast_tpu.models import slam as jslam
 from feature_detector_fast_tpu_torch.io import render
-from feature_detector_fast_tpu_torch.models import lie, slam
+from feature_detector_fast_tpu_torch.models import lie, posegraph, slam
 from feature_detector_fast_tpu_torch.utils import metrics, precision
 
 #: Hypotheses of the synthetic runs (both sides): fewer than the default
@@ -129,6 +129,36 @@ def test_run_vo_matches_matches_jax(x64, rng, inject_jax_draws, loops, noise):
         assert ate < 0.02 * np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum()
     else:
         assert ate < 1e-3, ate
+
+
+@pytest.mark.parametrize("min_gap, capacity", [(0, 16), (4, 8)])
+def test_run_vo_matches_pads_only_a_loop_graph(rng, monkeypatch, min_gap, capacity):
+    """A loop run hands the pose graph an edge capacity of the next power of
+    two of (frames - 1 + loop pairs at least the minimum loop-edge gap
+    apart), a bound read from the input: 5 + 4 pairs, 16 slots; at a
+    minimum gap of 4, 5 + 3, 8 slots.  An odometry run hands it none.
+    ``_internals`` keeps the graph as assembled, its edges unpadded."""
+    gt = make_trajectory(6)
+    pair_data, lm = synth(rng, gt)
+    views = [project(lm, T) for T in gt]
+    loop_pairs = [(i, j, views[i][0], views[j][0], views[i][1] & views[j][1],
+                   np.arange(len(lm), dtype=np.int32)) for i, j in ((0, 5), (0, 4), (1, 5), (1, 4))]
+    seen = []
+    real = posegraph.optimize
+
+    def record(g, *a, **k):
+        seen.append(k.get("edge_capacity"))
+        return real(g, *a, **k)
+
+    monkeypatch.setattr(posegraph, "optimize", record)
+    cfg = slam.VOConfig(ransac_hypotheses=HYP, loop_edge_min_gap=min_gap)
+    kw = dict(device="cpu", dtype=torch.float64)
+    internals = {}
+    slam.run_vo_matches(list(pair_data), cfg, loop_pairs=loop_pairs, _internals=internals, **kw)
+    slam.run_vo_matches(list(pair_data), cfg, **kw)
+    assert seen == [capacity, None]
+    edges = internals["graph"].edge_i.shape[0]
+    assert 5 < edges <= capacity and all(t.shape[0] == edges for t in internals["graph"][1:])
 
 
 def test_run_vo_images_matches_jax(monkeypatch):

@@ -324,7 +324,8 @@ def test_pose_graph_counts_equal_a_recount(noise):
         prev = pk
     assert torch.equal(prev, counted)
     # One call on the CPU: counted, and never a graph's replay.
-    assert r.counts == {"calls": 1, "steps": iters, "steps_accepted": recount}
+    assert r.counts == {"calls": 1, "steps": iters, "steps_accepted": recount,
+                        "edges": n - 1, "edge_slots": n - 1}
     assert recount < iters and (recount > 0 or not noise)
 
 
