@@ -229,7 +229,9 @@ def _schur_matvec(sys: _System, p: BAProblem, v: torch.Tensor, damping,
 
 def _cg(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
     """Conjugate gradient on (..., C, 6) vectors, a fixed ``iters`` steps (no
-    early exit), each batch element with its own step sizes."""
+    early exit), each batch element with its own step sizes.  The pose
+    graph's CG solver runs it on its (N, 6) updates, with its damping in
+    ``matvec``."""
 
     def dot(a, c):
         return (a * c).sum((-2, -1), keepdim=True)

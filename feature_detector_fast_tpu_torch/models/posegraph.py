@@ -33,7 +33,7 @@ import torch
 from torch.func import jacfwd, jvp, vjp
 
 from ..utils.precision import matmul_highest
-from . import lie
+from . import ba, lie
 
 #: The dtype in which the dense solver forms and solves its normal equations,
 #: whatever the poses' dtype (see ``_steps``).
@@ -84,24 +84,6 @@ def _normal_system(g: PoseGraph):
         return pullback(jv)[0]
 
     return jtj_v, pullback(r0)[0], (r0 * r0).sum()
-
-
-def _cg(matvec, b: torch.Tensor, iters: int, damping) -> torch.Tensor:
-    """Plain conjugate gradient on (A + damping I) x = b, a fixed number of
-    iterations (no early exit)."""
-    x = torch.zeros_like(b)
-    r = b
-    p = r
-    rs = (r * r).sum()
-    for _ in range(iters):
-        ap = matvec(p) + damping * p
-        alpha = rs / torch.clamp((p * ap).sum(), min=1e-20)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = (r * r).sum()
-        p = r + rs_new / torch.clamp(rs, min=1e-20) * p
-        rs = rs_new
-    return x
 
 
 #: The call of one key, counted in a row on a device, that captures its
@@ -238,7 +220,7 @@ def _steps(g: PoseGraph, iterations: int, solver: str, cg_iters: int, damping: f
             delta = delta.reshape(n, 6)
         else:  # "cg"
             jtj_v, jtr, r2 = _normal_system(gg)
-            delta = -_cg(jtj_v, jtr, cg_iters, lam)
+            delta = -ba._cg(lambda v: jtj_v(v) + lam * v, jtr, cg_iters)
         if robust_delta > 0.0:
             r2 = r2_cur
         delta[0] = 0.0

@@ -129,23 +129,25 @@ class PairEstimates(NamedTuple):
     depths_b: np.ndarray  # (P, K) the same points' depth in the second frame
 
 
-def _as_pair_batch(pair_data: Sequence[Tuple[np.ndarray, ...]]) -> PairBatch:
-    """A list of (pa, pb, valid[, idx_b]) tuples as a padded PairBatch; a
+def _as_pair_batch(pair_data: Sequence[Tuple[np.ndarray, ...]],
+                   slots: Optional[int] = None) -> PairBatch:
+    """A list of (pa, pb, valid[, idx_b]) tuples as a PairBatch padded to
+    its longest entry, or to ``slots`` with longer entries truncated; a
     missing idx_b is the identity slot mapping."""
-    kmax = max(np.asarray(t[0]).shape[0] for t in pair_data)
+    kmax = slots or max(np.asarray(t[0]).shape[0] for t in pair_data)
     p = len(pair_data)
     pa = np.zeros((p, kmax, 2), np.asarray(pair_data[0][0]).dtype)
     pb = np.zeros_like(pa)
     valid = np.zeros((p, kmax), bool)
     idx_b = np.full((p, kmax), -1, np.int32)
     for k, entry in enumerate(pair_data):
-        a, b, v = (np.asarray(x) for x in entry[:3])
+        a, b, v = (np.asarray(x)[:kmax] for x in entry[:3])
         n = a.shape[0]
         pa[k, :n] = a
         pb[k, :n] = b
         valid[k, :n] = v
         if len(entry) > 3:
-            idx_b[k, :n] = np.asarray(entry[3], np.int32)
+            idx_b[k, :n] = np.asarray(entry[3], np.int32)[:n]
         else:
             idx_b[k, :n] = np.arange(n, dtype=np.int32)
         idx_b[k, :n] = np.where(valid[k, :n], idx_b[k, :n], -1)
@@ -199,6 +201,14 @@ def _estimate_pairs_device(pa, pb, valid, draws, threshold, refine_iters=0, refi
     return R, t, inl, za, zb
 
 
+def _put(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` on ``dev`` in ``dtype``: a tensor as it is, host values through
+    ``np.asarray`` (a list of floats stays float64 up to the cast)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=dev, dtype=dtype)
+
+
 def estimate_pairs(batch: PairBatch, config: VOConfig, seed_offset: int = 0,
                    draws: Optional[torch.Tensor] = None, *, device="cuda",
                    dtype: Optional[torch.dtype] = None) -> PairEstimates:
@@ -213,12 +223,9 @@ def estimate_pairs(batch: PairBatch, config: VOConfig, seed_offset: int = 0,
     if draws is None:
         draws = ransac_draws(config.seed + seed_offset, p, config.ransac_hypotheses, k)
     dtype = dtype or torch.as_tensor(batch.pa).dtype
-
-    def put(x, dt=dtype):
-        return torch.as_tensor(x).to(device=dev, dtype=dt)
-
     R, t, inl, za, zb = _estimate_pairs_device(
-        put(batch.pa), put(batch.pb), put(batch.valid, torch.bool), put(draws, draws.dtype),
+        _put(batch.pa, dev, dtype), _put(batch.pb, dev, dtype),
+        _put(batch.valid, dev, torch.bool), _put(draws, dev, draws.dtype),
         config.ransac_threshold, int(config.pair_refine_iters), int(config.pair_refine_cg))
     host = torch.cat([R.reshape(p, 9), t, inl.to(R.dtype), za, zb], dim=1).cpu().numpy()
     return PairEstimates(host[:, :9].reshape(p, 3, 3), host[:, 9:12],
@@ -239,13 +246,6 @@ def _staged(times: Optional[dict], name: str):
         t0 = time.perf_counter()
         yield stage
         times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-
-
-def _scatter_rows(dst: np.ndarray, idx: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """Copy of ``dst`` with ``dst[idx] = rows``."""
-    out = np.array(dst)
-    out[idx] = rows
-    return out
 
 
 def _chain_scales(est: PairEstimates, idx_b: np.ndarray) -> np.ndarray:
@@ -269,18 +269,194 @@ def _chain_scales(est: PairEstimates, idx_b: np.ndarray) -> np.ndarray:
     return scales
 
 
-def _fit_loop_batch(lbatch: PairBatch, k_cap: int) -> PairBatch:
-    """The loop batch at the main batch's slot capacity: padded, or
-    truncated (loop slots beyond it cannot link against the chain's
-    depths)."""
-    extra = k_cap - lbatch.pa.shape[1]
-    if extra > 0:
-        return PairBatch(np.pad(lbatch.pa, ((0, 0), (0, extra), (0, 0))),
-                         np.pad(lbatch.pb, ((0, 0), (0, extra), (0, 0))),
-                         np.pad(lbatch.valid, ((0, 0), (0, extra))),
-                         np.pad(lbatch.idx_b, ((0, 0), (0, extra)), constant_values=-1))
-    return PairBatch(lbatch.pa[:, :k_cap], lbatch.pb[:, :k_cap], lbatch.valid[:, :k_cap],
-                     lbatch.idx_b[:, :k_cap])
+def _rt(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """The float64 4 x 4 transform [R | t]."""
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T
+
+
+def _integrate(rels: Sequence[np.ndarray], c: Optional[np.ndarray] = None
+               ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """(motions, (P + 1, 4, 4) world_T_cam poses from camera 0 at the
+    identity): world_T_cam_{k+1} = world_T_cam_k @ rel_k over the
+    cam_k_T_cam_{k+1} ``rels``, each translation divided by c[k] first
+    where ``c`` is given."""
+    out, poses = [], [np.eye(4)]
+    for k, rel in enumerate(rels):
+        if c is not None:
+            rel = rel.copy()
+            rel[:3, 3] = rel[:3, 3] / c[k]
+        out.append(rel)
+        poses.append(poses[-1] @ rel)
+    return out, np.stack(poses)
+
+
+def _estimate_loops(batch: PairBatch, loop_pairs, far: np.ndarray, config: VOConfig,
+                    stage_times: Optional[dict], dev: torch.device, dtype: torch.dtype
+                    ) -> Tuple[PairBatch, PairEstimates]:
+    """(loop batch, its estimates) of all loop pairs at the main batch's slot
+    capacity (loop slots beyond it cannot link against the chain's depths),
+    in two phases: RANSAC without the per-pair refinement over every
+    candidate, then a refined re-estimate of only the pairs that become
+    graph edges (``far`` and enough inliers), each with its own rows of the
+    same draws."""
+    k_cap = batch.pa.shape[1]
+    lbatch = _as_pair_batch([e[2:] for e in loop_pairs], k_cap)
+    ldraws = ransac_draws(config.seed + 1, lbatch.pa.shape[0], config.ransac_hypotheses, k_cap)
+    cfg_fast = dataclasses.replace(config, pair_refine_iters=0)
+    with _staged(stage_times, "loop_ransac"):
+        lest = estimate_pairs(lbatch, cfg_fast, draws=ldraws, device=dev, dtype=dtype)
+    if config.pair_refine_iters > 0:
+        sel = np.nonzero(far & (lest.inl.sum(axis=1) >= 16))[0]
+        if sel.size:
+            sub = PairBatch(*(a[sel] for a in lbatch))
+            with _staged(stage_times, "loop_refine"):
+                rsub = estimate_pairs(sub, config, draws=ldraws[torch.from_numpy(sel)],
+                                      device=dev, dtype=dtype)
+            lest = PairEstimates(*(np.array(a) for a in lest))
+            for a, b in zip(lest, rsub):
+                a[sel] = b
+    return lbatch, lest
+
+
+def _chain_depths(est: PairEstimates, idx_b: np.ndarray, scales: np.ndarray, f: int
+                  ) -> Tuple[np.ndarray, int]:
+    """(chain-unit depth per frame-f keypoint slot, nan where unknown; the
+    segment whose scale error it carries): from pair f when it exists, else
+    pair f-1's second-frame depths remapped through its idx_b."""
+    p, k_cap = est.inl.shape
+    tbl = np.full(k_cap, np.nan)
+    if f < p:
+        m = est.inl[f] & (est.depths_a[f] > 1e-6)
+        tbl[m] = est.depths_a[f, m] * scales[f]
+        return tbl, f
+    m = est.inl[f - 1] & (idx_b[f - 1] >= 0) & (est.depths_b[f - 1] > 1e-6)
+    tbl[idx_b[f - 1, m]] = est.depths_b[f - 1, m] * scales[f - 1]
+    return tbl, f - 1
+
+
+def _gated_median(log_ratios: np.ndarray, mad_max: float):
+    """The median of the 1-D log depth ratios, or None under 8 of them or
+    where their median absolute deviation exceeds ``mad_max`` (dispersed
+    ratios: the pair's geometry disagrees with the chain)."""
+    if log_ratios.size < 8:
+        return None
+    med = np.median(log_ratios)
+    return med if np.median(np.abs(log_ratios - med)) <= mad_max else None
+
+
+def _revisit_rotation(pa: np.ndarray, pb: np.ndarray, inl: np.ndarray
+                      ) -> Tuple[np.ndarray, float]:
+    """(Kabsch rotation of the matched unit rays over the inliers ``inl``,
+    their median rotation-compensated disparity, inf without inliers)."""
+    qa3, qb3 = (np.concatenate([q, np.ones((q.shape[0], 1), q.dtype)], 1) for q in (pa, pb))
+    qa3, qb3 = (q / np.linalg.norm(q, axis=1, keepdims=True) for q in (qa3, qb3))
+    B = (qb3 * inl[:, None]).T @ qa3  # sum over inliers of qb qa^T
+    U, _, Vt = np.linalg.svd(B)
+    R = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    disp = np.linalg.norm(np.cross(qa3 @ R.T, qb3), axis=1)
+    return R, float(np.median(disp[inl])) if inl.any() else np.inf
+
+
+class _LoopEdge(NamedTuple):
+    """Accepted loop pair (i, j), row ``li`` of the loop estimates: cam_j_T_cam_i
+    = [R | t_unit * scale / c[i]] (``scale`` 0.0: a zero-parallax revisit);
+    ``log_drift``, segment ``seg_j``'s scale drift against i's, or None."""
+
+    i: int
+    j: int
+    li: int
+    scale: float
+    R: np.ndarray
+    seg_j: Optional[int]
+    log_drift: Optional[float]
+
+
+def _accept_loop(i: int, j: int, li: int, linked: bool, est: PairEstimates, idx_b: np.ndarray,
+                 scales: np.ndarray, lbatch: PairBatch, lest: PairEstimates, config: VOConfig
+                 ) -> Optional[_LoopEdge]:
+    """Loop pair ``li`` (frames i, j) as a ``_LoopEdge``, or None where it
+    has too few inliers or its depth ratios against the chain disperse.
+    The frame-j drift observation needs the loop's real slot linkage
+    (``linked``: an idx_b was given; the batch's identity mapping would pair
+    unrelated slots); slots beyond the main batch's capacity are masked."""
+    p, k_cap = est.inl.shape
+    if int(lest.inl[li].sum()) < 16 or i >= p:
+        return None
+    # Zero-parallax revisit: a coincident-camera pair breaks essential
+    # RANSAC (any skew E scores every correspondence), so the revisit test
+    # fits its own rotation and gates on the median R-compensated
+    # disparity.  Below the gate the SE(3) measurement is [R_kabsch | 0] and
+    # the drift observation is the direct chain-depth ratio.
+    R_rv, d_med = _revisit_rotation(lbatch.pa[li], lbatch.pb[li], lest.inl[li] & lbatch.valid[li])
+    revisit = d_med < config.revisit_disparity_max
+    if revisit:
+        scale, R = 0.0, R_rv
+    else:
+        # frame-i depths from the odometry chain, at chained scale
+        m = (est.inl[i] & lest.inl[li] & (est.depths_a[i] > 1e-6) & (lest.depths_a[li] > 1e-6))
+        med = _gated_median(np.log(est.depths_a[i, m] * scales[i] / lest.depths_a[li, m]),
+                            config.loop_ratio_mad_max)
+        if med is None:
+            return None
+        scale, R = float(np.exp(med)), lest.R[li]
+    log_drift = seg = None
+    if linked:
+        tbl, seg = _chain_depths(est, idx_b, scales, j)
+        lidx = lbatch.idx_b[li]
+        d_j = np.where((lidx >= 0) & (lidx < k_cap), tbl[np.clip(lidx, 0, k_cap - 1)], np.nan)
+        if revisit:
+            lr = np.log(np.abs(est.depths_a[i] * scales[i] / d_j))
+            ok = (est.inl[i] & lest.inl[li] & (est.depths_a[i] > 1e-6) & np.isfinite(lr)
+                  & (d_j > 1e-6))
+            med = _gated_median(lr[ok], config.loop_ratio_mad_max)
+            log_drift = None if med is None else float(med)
+        else:
+            ok = lest.inl[li] & (lest.depths_b[li] > 1e-6) & np.isfinite(d_j)
+            med = _gated_median(np.log(d_j[ok] / lest.depths_b[li, ok]),
+                                config.loop_ratio_mad_max)
+            log_drift = None if med is None else float(np.log(scale / float(np.exp(med))))
+    return _LoopEdge(i, j, li, scale, R, None if log_drift is None else seg, log_drift)
+
+
+def _scale_drift(p: int, accepted: Sequence[_LoopEdge], stage_times: Optional[dict]
+                 ) -> np.ndarray:
+    """(P,) scale-drift factors of the chain's segments, segment 0 the
+    gauge: a linear least-squares solve of the accepted loops' relative
+    drift observations, ones where no loop observes one."""
+    cons = [(e.i, e.seg_j, e.log_drift) for e in accepted
+            if e.seg_j is not None and e.i != e.seg_j]
+    if not cons:
+        return np.ones(p)
+    ci, cj, cd = zip(*cons)
+    with _staged(stage_times, "scale_drift"):
+        log_c = posegraph.solve_scale_drift(p, np.array(ci, np.int32), np.array(cj, np.int32),
+                                            np.array(cd), np.ones(len(cons)))
+    return np.exp(log_c)
+
+
+def _loop_edges(accepted: Sequence[_LoopEdge], far: np.ndarray, c: np.ndarray,
+                lbatch: PairBatch, lest: PairEstimates, config: VOConfig,
+                metrics: Optional[list]) -> list:
+    """(i, j, measured T_i^-1 T_j, weight) of the accepted loops far enough
+    apart (``far``), their scale with the drift ``c`` divided out; a
+    ``metrics`` record for every accepted loop."""
+    edges = []
+    for e in accepted:
+        added = bool(far[e.li])  # a short-gap loop gives only its drift observation
+        if added:
+            s_loop = e.scale / c[e.i] if e.scale else 0.0
+            edges.append((e.i, e.j, np.linalg.inv(_rt(e.R, lest.t_unit[e.li] * s_loop)),
+                          config.loop_edge_weight))
+        if metrics is not None:
+            rec = {"pair": (e.i, e.j), "loop_closure": True, "edge_added": added,
+                   "matches": int(lbatch.valid[e.li].sum()), "inliers": int(lest.inl[e.li].sum())}
+            if added:
+                rec["scale"] = s_loop
+            metrics.append(dict(rec, log_drift=e.log_drift))
+    return edges
 
 
 def _chained_graph(batch: PairBatch, est: PairEstimates, config: VOConfig,
@@ -288,228 +464,78 @@ def _chained_graph(batch: PairBatch, est: PairEstimates, config: VOConfig,
                    dev: torch.device, dtype: torch.dtype):
     """``run_vo_matches``' host part between the pair estimates and the pose
     graph: the scale chain, the integrated odometry, the loop edges with
-    their drift solve, and the pose graph assembled on ``dev``.  Returns
-    (graph, BA's loop links, BA's rotation edges or None)."""
-    scales = _chain_scales(est, batch.idx_b)
+    their drift solve, and the pose graph.  Returns (graph, BA's loop
+    links, BA's rotation edges or None, the graph's ``posegraph.optimize``
+    iterations, robust delta and edge capacity).
 
-    # integrate odometry, world frame = camera 0:
-    # world_T_cam_{k+1} = world_T_cam_k @ inv([R | s t])
+    Loop pairs are estimated in one more batched call; each recovers its
+    scale against pair i's chained depths by slot index, and with a sixth
+    element idx_b also observes the relative scale drift between segments i
+    and j, divided out of the chain (``_scale_drift``) before the pose
+    graph runs."""
     p = batch.pa.shape[0]
-    n = p + 1
-    poses = [np.eye(4)]
-    rels = []
-    for k in range(p):
-        Tba = np.eye(4)
-        Tba[:3, :3] = est.R[k]
-        Tba[:3, 3] = est.t_unit[k] * scales[k]
-        rel = np.linalg.inv(Tba)  # cam_k_T_cam_{k+1}
-        rels.append(rel)
-        poses.append(poses[-1] @ rel)
-    poses = np.stack(poses)
-
-    edge_i = list(range(n - 1))
-    edge_j = list(range(1, n))
-    edge_T = list(rels)
-    edge_w = [1.0] * (n - 1)
-
+    scales = _chain_scales(est, batch.idx_b)
+    rels, poses = _integrate([np.linalg.inv(_rt(est.R[k], est.t_unit[k] * scales[k]))
+                              for k in range(p)])  # cam_k_T_cam_{k+1}
+    loop_edges = []
     ba_loop_links = []  # accepted loops' correspondences, BA's long-range track links
-    rot_edges = None  # relative-rotation graph of BA's rotation averaging
-    # Loop-closure edges: all loop pairs in one more batched estimate; each
-    # recovers its scale against pair i's chained depths by slot index, and
-    # with a sixth element idx_b also observes the relative scale drift
-    # between segments i and j, divided out of the chain by a linear solve
-    # before the pose graph runs.
+    n_far = 0
     if loop_pairs:
-        k_cap = batch.pa.shape[1]
-        lbatch = _as_pair_batch([e[2:] for e in loop_pairs])
-        if lbatch.pa.shape[1] != k_cap:
-            lbatch = _fit_loop_batch(lbatch, k_cap)
-        # Two-phase loop estimation: RANSAC without the per-pair refinement
-        # over every candidate, then a refined re-estimate of only the pairs
-        # that become graph edges (far gap, enough inliers), each with its
-        # own rows of the same draws.
-        ldraws = ransac_draws(config.seed + 1, lbatch.pa.shape[0], config.ransac_hypotheses,
-                              k_cap)
-        cfg_fast = dataclasses.replace(config, pair_refine_iters=0)
-        with _staged(stage_times, "loop_ransac"):
-            lest = estimate_pairs(lbatch, cfg_fast, draws=ldraws, device=dev, dtype=dtype)
-        if config.pair_refine_iters > 0:
-            gaps = np.asarray([int(e[1]) - int(e[0]) for e in loop_pairs])
-            need = (gaps >= config.loop_edge_min_gap) & (lest.inl.sum(axis=1) >= 16)
-            sel = np.nonzero(need)[0]
-            if sel.size:
-                sub = PairBatch(lbatch.pa[sel], lbatch.pb[sel], lbatch.valid[sel],
-                                lbatch.idx_b[sel])
-                with _staged(stage_times, "loop_refine"):
-                    rsub = estimate_pairs(sub, config, draws=ldraws[torch.from_numpy(sel)],
-                                          device=dev, dtype=dtype)
-                lest = PairEstimates(*(_scatter_rows(a, sel, b) for a, b in zip(lest, rsub)))
-
-        def chain_depth_table(f: int) -> Tuple[np.ndarray, int]:
-            """(chain-unit depth per frame-f slot, segment whose scale error
-            it carries): from pair f when it exists, else pair f-1's
-            second-frame depths remapped through its idx_b."""
-            tbl = np.full(k_cap, np.nan)
-            if f < p:
-                m = est.inl[f] & (est.depths_a[f] > 1e-6)
-                tbl[m] = est.depths_a[f, m] * scales[f]
-                return tbl, f
-            m = est.inl[f - 1] & (batch.idx_b[f - 1] >= 0) & (est.depths_b[f - 1] > 1e-6)
-            tbl[batch.idx_b[f - 1, m]] = est.depths_b[f - 1, m] * scales[f - 1]
-            return tbl, f - 1
-
-        accepted = []  # (i, j, li, r_i, seg_j or None, log_drift or None)
+        far = np.asarray([int(e[1]) - int(e[0]) >= config.loop_edge_min_gap for e in loop_pairs])
+        n_far = int(far.sum())
+        lbatch, lest = _estimate_loops(batch, loop_pairs, far, config, stage_times, dev, dtype)
+        accepted = []
         t_accept0 = time.perf_counter()
         for li, entry in enumerate(loop_pairs):
-            i, j = int(entry[0]), int(entry[1])
-            n_inl = int(lest.inl[li].sum())
-            if n_inl < 16 or i >= p:
+            linked = len(entry) > 5
+            e = _accept_loop(int(entry[0]), int(entry[1]), li, linked, est, batch.idx_b, scales,
+                             lbatch, lest, config)
+            if e is None:
                 continue
-            # Zero-parallax revisit: a coincident-camera pair breaks
-            # essential RANSAC (any skew E scores every correspondence), so
-            # the revisit test fits its own rotation (Kabsch on the matched
-            # unit rays) and gates on the median R-compensated disparity.
-            # Below the gate the SE(3) measurement is [R_kabsch | 0] and the
-            # drift observation is the direct chain-depth ratio.
-            minl = lest.inl[li] & lbatch.valid[li]
-            qa3 = np.concatenate([lbatch.pa[li], np.ones((k_cap, 1), lbatch.pa.dtype)], 1)
-            qb3 = np.concatenate([lbatch.pb[li], np.ones((k_cap, 1), lbatch.pb.dtype)], 1)
-            qa3 = qa3 / np.linalg.norm(qa3, axis=1, keepdims=True)
-            qb3 = qb3 / np.linalg.norm(qb3, axis=1, keepdims=True)
-            B = (qb3 * minl[:, None]).T @ qa3  # sum over inliers of qb qa^T
-            U, _, Vt = np.linalg.svd(B)
-            R_rv = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
-            disp = np.linalg.norm(np.cross(qa3 @ R_rv.T, qb3), axis=1)
-            d_med = float(np.median(disp[minl])) if minl.any() else np.inf
-            if d_med < config.revisit_disparity_max:
-                seg_j = log_drift = None
-                lidx = lbatch.idx_b[li]
-                tbl_j, seg = chain_depth_table(j)
-                m3 = (est.inl[i] & lest.inl[li] & (lidx >= 0) & (lidx < k_cap)
-                      & (est.depths_a[i] > 1e-6))
-                if len(entry) <= 5:
-                    m3 = np.zeros_like(m3)
-                d_i = est.depths_a[i] * scales[i]
-                d_j = np.where(m3, tbl_j[np.clip(lidx, 0, k_cap - 1)], np.nan)
-                lrv = np.log(np.abs(d_i / d_j))
-                ok3 = m3 & np.isfinite(lrv) & (d_j > 1e-6)
-                if ok3.sum() >= 8:
-                    med = float(np.median(lrv[ok3]))
-                    if float(np.median(np.abs(lrv[ok3] - med))) <= config.loop_ratio_mad_max:
-                        seg_j = seg
-                        log_drift = med
-                accepted.append((i, j, li, (0.0, R_rv), seg_j, log_drift))
-                if len(entry) > 5:
-                    ba_loop_links.append((i, j, lbatch.pa[li], lbatch.pb[li],
-                                          lest.inl[li] & lbatch.valid[li], lbatch.idx_b[li]))
-                continue
-            # frame-i depths from the odometry chain, at chained scale
-            m = (est.inl[i] & lest.inl[li] & (est.depths_a[i] > 1e-6)
-                 & (lest.depths_a[li] > 1e-6))
-            if m.sum() < 8:
-                continue
-            lr = np.log(est.depths_a[i, m] * scales[i] / lest.depths_a[li, m])
-            mad = float(np.median(np.abs(lr - np.median(lr))))
-            if mad > config.loop_ratio_mad_max:
-                # dispersed depth ratios: the pair's geometry disagrees with
-                # the chain; drop the hypothesis
-                continue
-            r_i = float(np.exp(np.median(lr)))
-            # The drift observation r_i / r_j needs frame-j chain depths
-            # linked through the loop's real idx_b: a 5-tuple has none (the
-            # batch's identity mapping would pair unrelated slots), and
-            # slots beyond the main batch's capacity are masked out.
-            seg_j = log_drift = None
-            lidx = lbatch.idx_b[li]
-            tbl_j, seg = chain_depth_table(j)
-            m2 = lest.inl[li] & (lidx >= 0) & (lidx < k_cap) & (lest.depths_b[li] > 1e-6)
-            if len(entry) <= 5:
-                m2 = np.zeros_like(m2)
-            d_chain_j = np.where(m2, tbl_j[np.clip(lidx, 0, k_cap - 1)], np.nan)
-            ok2 = np.isfinite(d_chain_j) & m2
-            if ok2.sum() >= 8:
-                lrj = np.log(d_chain_j[ok2] / lest.depths_b[li, ok2])
-                if float(np.median(np.abs(lrj - np.median(lrj)))) <= config.loop_ratio_mad_max:
-                    r_j = float(np.exp(np.median(lrj)))
-                    seg_j = seg
-                    log_drift = float(np.log(r_i / r_j))
-            accepted.append((i, j, li, r_i, seg_j, log_drift))
-            if len(entry) > 5:
+            accepted.append(e)
+            if linked:
                 # the real frame-j slot linkage makes the loop's inliers
                 # long-range BA track links (a 5-tuple's identity would pair
                 # unrelated keypoints)
-                ba_loop_links.append((i, j, lbatch.pa[li], lbatch.pb[li],
+                ba_loop_links.append((e.i, e.j, lbatch.pa[li], lbatch.pb[li],
                                       lest.inl[li] & lbatch.valid[li], lbatch.idx_b[li]))
-
         if stage_times is not None:
             stage_times["loop_accept_host"] = (stage_times.get("loop_accept_host", 0.0)
                                                + time.perf_counter() - t_accept0)
+        c = _scale_drift(p, accepted, stage_times)
+        rels, poses = _integrate(rels, c)
+        loop_edges = _loop_edges(accepted, far, c, lbatch, lest, config, metrics)
+    edges = [(k, k + 1, rel, 1.0) for k, rel in enumerate(rels)] + loop_edges
+    g, rot_edges, settings = _pose_graph(poses, edges, n_far, config, dev, dtype)
+    return g, ba_loop_links, rot_edges, settings
 
-        # Per-segment scale-drift correction from the loops' relative drift
-        # observations (linear least squares; segment 0 is the gauge).
-        c = np.ones(p)
-        cons = [(i, sj, ld) for (i, _, _, _, sj, ld) in accepted if sj is not None and i != sj]
-        if cons:
-            with _staged(stage_times, "scale_drift"):
-                log_c = posegraph.solve_scale_drift(
-                    p, np.array([x[0] for x in cons], np.int32),
-                    np.array([x[1] for x in cons], np.int32), np.array([x[2] for x in cons]),
-                    np.ones(len(cons)))
-            c = np.exp(log_c)
-            # re-integrate the chain with the drift divided out
-            poses = [np.eye(4)]
-            for k in range(p):
-                rel = rels[k].copy()
-                rel[:3, 3] = rel[:3, 3] / c[k]
-                rels[k] = rel
-                edge_T[k] = rel
-                poses.append(poses[-1] @ rel)
-            poses = np.stack(poses)
 
-        for (i, j, li, r_i, seg_j, log_drift) in accepted:
-            if j - i < config.loop_edge_min_gap:
-                # no SE(3) edge, but its drift observation entered the solve
-                if metrics is not None:
-                    metrics.append({"pair": (i, j), "loop_closure": True, "edge_added": False,
-                                    "matches": int(lbatch.valid[li].sum()),
-                                    "inliers": int(lest.inl[li].sum()), "log_drift": log_drift})
-                continue
-            if isinstance(r_i, tuple):
-                # zero-parallax revisit: Kabsch rotation, zero translation
-                s_loop = 0.0
-                R_edge = r_i[1]
-            else:
-                s_loop = r_i / c[i]
-                R_edge = lest.R[li]
-            Tji = np.eye(4)
-            Tji[:3, :3] = R_edge
-            Tji[:3, 3] = lest.t_unit[li] * s_loop
-            edge_i.append(i)
-            edge_j.append(j)
-            edge_T.append(np.linalg.inv(Tji))  # measured T_i^-1 T_j
-            edge_w.append(config.loop_edge_weight)
-            if metrics is not None:
-                metrics.append({"pair": (i, j), "loop_closure": True, "edge_added": True,
-                                "matches": int(lbatch.valid[li].sum()),
-                                "inliers": int(lest.inl[li].sum()), "scale": s_loop,
-                                "log_drift": log_drift})
-
-    if loop_pairs and len(edge_i) > n - 1:
-        # BA's rotation averaging takes the pose graph's vetted edge set
-        # (odometry and far-gap loops): short-gap loops' two-view rotations
-        # are too noisy (slam.py:643-655 of the JAX package).
-        rot_edges = (list(edge_i), list(edge_j), [np.asarray(T)[:3, :3] for T in edge_T],
-                     list(edge_w))
-
-    def put(x, dt=dtype):
-        return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
-
+def _pose_graph(poses: np.ndarray, edges: list, n_far: int, config: VOConfig,
+                dev: torch.device, dtype: torch.dtype):
+    """(the pose graph on ``dev`` of ``poses`` and the (i, j, measured
+    T_i^-1 T_j, weight) ``edges``, odometry first; BA's rotation edges or
+    None; its ``posegraph.optimize`` (iterations, robust delta, edge
+    capacity)).  Edges past the odometry's make it a loop graph; ``n_far``
+    loop pairs were far enough apart to give an edge."""
+    n = poses.shape[0]
+    edge_i, edge_j, edge_T, edge_w = (list(x) for x in zip(*edges))
     g = posegraph.PoseGraph(
-        poses=put(poses), edge_i=put(edge_i, torch.int64), edge_j=put(edge_j, torch.int64),
-        edge_T=put(np.stack(edge_T)), edge_valid=torch.ones(len(edge_i), dtype=torch.bool,
-                                                            device=dev),
-        edge_weight=put(edge_w))
-    return g, ba_loop_links, rot_edges
+        poses=_put(poses, dev, dtype), edge_i=_put(edge_i, dev, torch.int64),
+        edge_j=_put(edge_j, dev, torch.int64), edge_T=_put(np.stack(edge_T), dev, dtype),
+        edge_valid=torch.ones(len(edges), dtype=torch.bool, device=dev),
+        edge_weight=_put(edge_w, dev, dtype))
+    if len(edges) == n - 1:
+        return g, None, (config.pose_graph_iters, 0.0, None)
+    # BA's rotation averaging takes the pose graph's vetted edge set
+    # (odometry and far-gap loops): short-gap loops' two-view rotations
+    # are too noisy (slam.py:643-655 of the JAX package).
+    rot_edges = (edge_i, edge_j, [T[:3, :3] for T in edge_T], edge_w)
+    # A loop pair adds at most one edge, and none below the minimum gap:
+    # padded to the next power of two of that bound, sequences of one
+    # length and pair count share the optimizer's CUDA graph whichever
+    # loops they accept.
+    capacity = 1 << (n - 2 + n_far).bit_length()
+    return g, rot_edges, (config.loop_pose_graph_iters, config.loop_robust_delta, capacity)
 
 
 def run_vo_matches(
@@ -552,22 +578,11 @@ def run_vo_matches(
                             "inliers": int(est.inl[k].sum())})
 
     with tracing.span("vo.chain"):
-        g, ba_loop_links, rot_edges = _chained_graph(batch, est, config, loop_pairs, metrics,
-                                                     stage_times, dev, dtype)
-    has_loops = len(g.edge_i) > len(g.poses) - 1
-    capacity = None
-    if has_loops:
-        # A loop pair adds at most one edge, and none below the minimum gap:
-        # padded to the next power of two of that bound, sequences of one
-        # length and pair count share the optimizer's CUDA graph whichever
-        # loops they accept.
-        far = sum(int(e[1]) - int(e[0]) >= config.loop_edge_min_gap for e in loop_pairs)
-        capacity = 1 << (len(g.poses) - 2 + far).bit_length()
+        g, ba_loop_links, rot_edges, (iters, delta, capacity) = _chained_graph(
+            batch, est, config, loop_pairs, metrics, stage_times, dev, dtype)
     with _staged(stage_times, "pose_graph") as stage:
-        opt_poses, _ = posegraph.optimize(
-            g, config.loop_pose_graph_iters if has_loops else config.pose_graph_iters, "dense",
-            robust_delta=config.loop_robust_delta if has_loops else 0.0, counts=stage,
-            edge_capacity=capacity)
+        opt_poses, _ = posegraph.optimize(g, iters, "dense", robust_delta=delta, counts=stage,
+                                          edge_capacity=capacity)
         result = opt_poses.cpu().numpy()
     if _internals is not None:
         _internals.update(batch=batch, est=est, graph_poses=result.copy(),
@@ -866,15 +881,13 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
         n_valid = np.bincount(obs_lm[obs_ok], minlength=n_lm)
         return w2c, pts, obs_ok & (n_valid >= 2)[obs_lm]
 
-    def put(x, dt=dtype):
-        return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dt)
-
     def solve(w2c, pts, valid, iters, cg, delta, counts=None):
         # Only camera 0 is fixed: pinning a second (noisy) camera would
         # anchor BA to its error; the scale gauge is a damped null direction.
-        problem = ba_lib.BAProblem(put(w2c), put(pts), put(obs_cam, torch.int64),
-                                   put(obs_lm, torch.int64), put(obs_uv), put(valid, torch.bool),
-                                   n_fixed_cams=1)
+        problem = ba_lib.BAProblem(
+            _put(w2c, dev, dtype), _put(pts, dev, dtype), _put(obs_cam, dev, torch.int64),
+            _put(obs_lm, dev, torch.int64), _put(obs_uv, dev, dtype),
+            _put(valid, dev, torch.bool), n_fixed_cams=1)
         if mesh is not None:
             from ..parallel import ba_sharded
 
@@ -897,8 +910,9 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
                 ei, ej, eR, ew = graph_edges
                 eR = np.asarray([np.asarray(R)[:3, :3] for R in eR])
                 Rw = posegraph.rotation_average(
-                    put(cur[:, :3, :3], torch.float32), put(ei, torch.int64),
-                    put(ej, torch.int64), put(eR, torch.float32), put(ew, torch.float32))
+                    _put(cur[:, :3, :3], dev, torch.float32), _put(ei, dev, torch.int64),
+                    _put(ej, dev, torch.int64), _put(eR, dev, torch.float32),
+                    _put(ew, dev, torch.float32))
                 cur[:, :3, :3] = Rw.cpu().numpy()
         for _ in range(int(loop_ba_rounds)):
             with _staged(stage_times, "triangulate_gate_host"):

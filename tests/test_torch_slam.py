@@ -95,26 +95,34 @@ def synth(rng, gt, n_pts=400, noise=0.0):
             for k in range(len(gt) - 1)], lm
 
 
-@pytest.mark.parametrize("loops,noise", [(False, 0.0), (True, 0.0), (True, 2e-4)])
+@pytest.mark.parametrize("loops,noise", [(False, 0.0), (True, 0.0), (True, 2e-4),
+                                         ("revisit", 0.0), ("revisit-5", 0.0)])
 def test_run_vo_matches_matches_jax(x64, rng, inject_jax_draws, loops, noise):
     """Odometry and odometry + a loop pair (a clean 6-tuple loop (0, 5) with
-    identity idx_b), on exact or noisy correspondences: equal poses to
-    1e-6, the same accepted loop and its drift observation; ATE < 1e-3 on
-    exact correspondences, < 2% of the trajectory on noisy ones."""
+    identity idx_b), on exact or noisy correspondences; and a trajectory
+    that returns to frame 0's pose (out three steps and back), whose loop
+    (0, 6) is a zero-parallax revisit, given as a 6-tuple and as a 5-tuple
+    without idx_b: equal poses to 1e-6, the same accepted loop and its
+    drift observation; ATE < 1e-3 on exact correspondences, < 2% of the
+    trajectory on noisy ones."""
     gt = make_trajectory(6)
+    if loops in ("revisit", "revisit-5"):
+        gt = np.concatenate([gt[:4], gt[2::-1]])
     pair_data, lm = synth(rng, gt, noise=noise)
     loop_pairs = None
     if loops:
         p0, v0 = project(lm, gt[0])
-        p5, v5 = project(lm, gt[5])
-        loop_pairs = [(0, 5, p0, p5, v0 & v5, np.arange(len(lm), dtype=np.int32))]
+        pj, vj = project(lm, gt[-1])
+        loop_pairs = [(0, len(gt) - 1, p0, pj, v0 & vj, np.arange(len(lm), dtype=np.int32))]
+        if loops == "revisit-5":
+            loop_pairs = [loop_pairs[0][:5]]
     jcfg = jslam.VOConfig(ransac_hypotheses=HYP)
     cfg = slam.vo_config_from(jcfg)
     jmets, mets, st = [], [], {}
     want = jslam.run_vo_matches(list(pair_data), jcfg, loop_pairs=loop_pairs, metrics=jmets)
     got = slam.run_vo_matches(list(pair_data), cfg, loop_pairs=loop_pairs, metrics=mets,
                               stage_times=st, device="cpu", dtype=torch.float64)
-    assert got.dtype == np.float64 and got.shape == (6, 4, 4)
+    assert got.dtype == np.float64 and got.shape == (len(gt), 4, 4)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     assert [m["pair"] for m in mets] == [m["pair"] for m in jmets]
     for m, jm in zip(mets, jmets):
@@ -125,6 +133,10 @@ def test_run_vo_matches_matches_jax(x64, rng, inject_jax_draws, loops, noise):
     if loops:
         assert any(m.get("edge_added") for m in mets), mets
         assert {"odom_estimate_pairs", "loop_ransac", "loop_refine", "pose_graph"} <= set(st)
+    if loops in ("revisit", "revisit-5"):
+        # the revisit's edge is [R | 0]; only a 6-tuple observes the drift
+        (loop,) = [m for m in mets if m.get("loop_closure")]
+        assert loop["scale"] == 0.0 and (loop["log_drift"] is None) == (loops == "revisit-5")
     if noise:
         assert ate < 0.02 * np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum()
     else:
