@@ -21,15 +21,18 @@ A problem may carry leading batch dimensions on its poses, points, obs_uv
 and obs_valid (P independent problems over shared observation indices, as
 ``slam.estimate_pairs`` refines every pair at once); costs then have the
 batch's shape.  Gauge: the first ``n_fixed_cams`` cameras are held fixed.
+On the card a global problem given capacities is padded to them with rows
+of exact zeros and replays one CUDA graph of the whole call (``optimize``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import jacfwd, vmap
 
+from ..utils import cuda_graphs
 from ..utils.precision import matmul_highest
 from . import lie
 
@@ -325,22 +328,54 @@ def total_cost(p: BAProblem, robust_delta: float = 0.0) -> torch.Tensor:
 
 @matmul_highest
 def optimize(p: BAProblem, iterations: int = 10, cg_iters: int = 30, damping: float = 1e-4,
-             robust_delta: float = 0.0, counts=None
+             robust_delta: float = 0.0, counts=None, obs_capacity: Optional[int] = None,
+             lm_capacity: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LM-damped BA.  Returns (poses, points, per-iteration cost
     (iterations, ...)).  A step that raises a problem's cost is rejected for
     that problem (``torch.where``, no host check).  ``robust_delta`` > 0
     switches to Huber-IRLS steps, accepted on the true Huber objective.
 
+    A global (unbatched) problem on CUDA tensors given ``obs_capacity`` or
+    ``lm_capacity`` takes the graph path: padded to that many observations
+    and landmarks (``_pad``: rows of exact zeros), so that problems of one
+    camera count share a CUDA-graph key (``_graph_key``), it replays one
+    CUDA graph of all its steps where its key is that of the device's
+    graph, and captures that graph where it is the key's
+    ``cuda_graphs.CAPTURE_AT``-th call in a row on the device; the returned
+    shapes are those of the unpadded call.  Any other call runs eagerly and
+    unpadded, as does every batched problem, whatever its capacities.  A
+    capacity below the problem's count raises ValueError.
+
     ``counts``, a ``tracing.span`` handle, gets ``solves`` (1), ``lm_steps``
-    (``iterations``) and ``cg_steps`` (``iterations * cg_iters``) while a
-    profiler records, host integers with no device work; the caller counts
-    ``lm_accepted`` from the returned costs (``lowered``) with its own
-    fetch of the result."""
+    (``iterations``) and ``cg_steps`` (``iterations * cg_iters``), and for a
+    global problem ``graph_replays`` (1 where a replay answered the call,
+    the capturing one included, else 0) and ``graph_captures`` (1 where the
+    call captured) while a profiler records, host integers with no device
+    work; the caller counts ``lm_accepted`` from the returned costs
+    (``lowered``) with its own fetch of the result."""
     if counts:
         counts.add("solves")
         counts.add("lm_steps", iterations)
         counts.add("cg_steps", iterations * cg_iters)
+    args = (iterations, cg_iters, damping, robust_delta)
+    if _batch(p):
+        return _lm(p, *args)
+    capacities = _capacities(p, obs_capacity, lm_capacity)
+    replayed = None
+    if (obs_capacity is not None or lm_capacity is not None) and _on_card(p):
+        q = _pad(p, *capacities)
+        replayed = _GRAPHS.run(_graph_key(q, args), q[:6], lambda dev: _Graph(q, args, dev))
+    (poses, points, costs), captured = replayed or (_lm(p, *args), False)
+    if counts:
+        counts.add("graph_replays", int(replayed is not None))
+        counts.add("graph_captures", int(captured))
+    return poses, points[:p.points.shape[0]], costs
+
+
+def _lm(p: BAProblem, iterations: int, cg_iters: int, damping: float, robust_delta: float
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``optimize``'s LM steps: (poses, points, per-iteration cost)."""
     poses, points = p.poses, p.points
     costs = []
     for _ in range(iterations):
@@ -356,6 +391,71 @@ def optimize(p: BAProblem, iterations: int = 10, cg_iters: int = 30, damping: fl
         points = torch.where(better[..., None, None], new_points, points)
         costs.append(torch.minimum(c_new, c_old))
     return poses, points, torch.stack(costs)
+
+
+def _capacities(p: BAProblem, obs_capacity: Optional[int], lm_capacity: Optional[int]
+                ) -> Tuple[int, int]:
+    """(observations, landmarks) a global problem ``p`` pads to: each
+    capacity, or the count where it is None.  Raises ValueError where a
+    capacity is below the problem's count."""
+    n_obs, n_lm = p.obs_lm.shape[0], p.points.shape[0]
+    obs_capacity = n_obs if obs_capacity is None else obs_capacity
+    lm_capacity = n_lm if lm_capacity is None else lm_capacity
+    for name, cap, n in (("obs_capacity", obs_capacity, n_obs), ("lm_capacity", lm_capacity, n_lm)):
+        if cap < n:
+            raise ValueError(f"{name} {cap} is below the problem's {n}")
+    return obs_capacity, lm_capacity
+
+
+def _pad(p: BAProblem, obs_capacity: int, lm_capacity: int) -> BAProblem:
+    """Global problem ``p`` with its observations padded to ``obs_capacity``
+    and its landmarks to ``lm_capacity`` (at least its counts:
+    ``_capacities``).  A padded landmark sits at the origin and has no valid
+    observation: its Hll is ``damping`` I and its b_l 0, so its update is
+    exactly 0.  A padded observation is invalid, with uv 0, so
+    ``_jacobians`` zeroes its residual and Jacobian rows; the k-th observes
+    camera k mod C and landmark (L + k) mod ``lm_capacity``, the padded
+    landmarks first, so that the zeros it adds spread over the segment
+    sums' atomics."""
+    n_obs, n_lm = p.obs_lm.shape[0], p.points.shape[0]
+    if (obs_capacity, lm_capacity) == (n_obs, n_lm):
+        return p
+    k = torch.arange(obs_capacity - n_obs, device=p.obs_lm.device)
+    return p._replace(
+        points=torch.cat([p.points, p.points.new_zeros((lm_capacity - n_lm, 3))]),
+        obs_cam=torch.cat([p.obs_cam, (k % p.poses.shape[0]).to(p.obs_cam.dtype)]),
+        obs_lm=torch.cat([p.obs_lm, ((n_lm + k) % lm_capacity).to(p.obs_lm.dtype)]),
+        obs_uv=torch.cat([p.obs_uv, p.obs_uv.new_zeros((obs_capacity - n_obs, 2))]),
+        obs_valid=torch.cat([p.obs_valid, p.obs_valid.new_zeros(obs_capacity - n_obs)]))
+
+
+def _on_card(p: BAProblem) -> bool:
+    """Whether every tensor of ``p`` is on a CUDA device (the graph path)."""
+    return all(t.is_cuda for t in p[:6])
+
+
+def _graph_key(p: BAProblem, args: tuple) -> tuple:
+    """A global call's CUDA-graph key: its device, each tensor's device,
+    dtype and (padded) shape, ``optimize``'s LM arguments and the fixed
+    cameras."""
+    return ((p.poses.device,) + tuple((t.device, t.dtype, t.shape) for t in p[:6]) + args
+            + (p.n_fixed_cams,))
+
+
+class _Graph(cuda_graphs.Graph):
+    """One ``_lm`` call as a CUDA graph: its static outputs are the poses,
+    the points and the costs."""
+
+    def __init__(self, p: BAProblem, args: tuple, dev: cuda_graphs.Device):
+        def run(inputs: tuple, warm: bool):
+            return _lm(BAProblem(*inputs, p.n_fixed_cams), 1 if warm else args[0], *args[1:])
+
+        super().__init__(run, p[:6], dev)
+
+
+#: ``optimize``'s CUDA graphs, one a device, apart from the pose graph's:
+#: the two solvers' calls alternate in a sequence.
+_GRAPHS = cuda_graphs.Graphs()
 
 
 def lowered(costs: torch.Tensor, cost0: torch.Tensor) -> torch.Tensor:

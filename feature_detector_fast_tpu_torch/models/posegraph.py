@@ -25,13 +25,13 @@ minimizes sum_e || log(Z_e^-1 T_i^-1 T_j) ||^2_w.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, jvp, vjp
 
+from ..utils import cuda_graphs
 from ..utils.precision import matmul_highest
 from . import ba, lie
 
@@ -86,11 +86,7 @@ def _normal_system(g: PoseGraph):
     return jtj_v, pullback(r0)[0], (r0 * r0).sum()
 
 
-#: The call of one key, counted in a row on a device, that captures its
-#: graph.  The tools run a key twice (warm-up and timed run), a loop graph's
-#: key comes once, and a capture costs about two eager calls: from the
-#: third call on, a key is one that a stream of problems repeats.
-CAPTURE_AT = 3
+CAPTURE_AT = cuda_graphs.CAPTURE_AT
 
 
 def _pad_edges(g: PoseGraph, capacity: Optional[int]) -> PoseGraph:
@@ -246,86 +242,30 @@ def _graph_key(g: PoseGraph, args: tuple) -> tuple:
     return (g.poses.device,) + tuple((t.device, t.dtype, t.shape) for t in g) + args
 
 
-class _Device:
-    """A device's CUDA graph: the key of its previous call and how many
-    calls in a row had it, the graph kept and its key, the side stream
-    captures use, and the event of the last replay."""
-
-    def __init__(self, device: torch.device):
-        self.stream = torch.cuda.Stream(device)
-        self.done = torch.cuda.Event()
-        self.last = self.key = self.graph = None
-        self.run = 0
+_Device = cuda_graphs.Device
 
 
-class _Graph:
-    """One ``_steps`` call as a CUDA graph: the static inputs it reads and
-    the static outputs (poses, costs, acceptance) each replay overwrites."""
+class _Graph(cuda_graphs.Graph):
+    """One ``_steps`` call as a CUDA graph: its static outputs are the
+    poses, costs and acceptance flags."""
 
-    def __init__(self, g: PoseGraph, args: tuple, dev: _Device):
-        self.dev = dev
-        self.inputs = PoseGraph(*(t.clone() for t in g))
-        caller = torch.cuda.current_stream(dev.stream.device)
-        dev.stream.wait_stream(caller)
-        # One step first on the capture stream, so that the capturing
-        # thread's library handles exist before capture.  cuBLAS keeps a
-        # workspace (32 MiB on Hopper) a handle and stream for the process's
-        # life: cleared after the step and after the capture, the capture
-        # stream's is allocated and freed inside the graph's own memory
-        # pool, and the graph holds no allocation beyond its static buffers.
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(dev.stream):
-            _steps(self.inputs, 1, *args[1:], flags=True)
-            torch._C._cuda_clearCublasWorkspaces()
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.outputs = _steps(self.inputs, *args, flags=True)
-            finally:
-                self.graph.capture_end()
-        torch._C._cuda_clearCublasWorkspaces()
-        caller.wait_stream(dev.stream)
+    def __init__(self, g: PoseGraph, args: tuple, dev: cuda_graphs.Device):
+        def run(inputs: tuple, warm: bool):
+            return _steps(PoseGraph(*inputs), 1 if warm else args[0], *args[1:], flags=True)
 
-    def replay(self, g: PoseGraph) -> Tuple[torch.Tensor, ...]:
-        """Copy-in, replay and clone-out on the caller's stream, after the
-        device's last replay, whichever stream that ran on."""
-        stream = torch.cuda.current_stream(self.dev.stream.device)
-        stream.wait_event(self.dev.done)
-        for static, t in zip(self.inputs, g):
-            static.copy_(t)
-        self.graph.replay()
-        out = tuple(t.clone() for t in self.outputs)
-        self.dev.done.record(stream)
-        return out
+        super().__init__(run, g, dev)
 
 
-class _Graphs:
-    """``optimize``'s CUDA graphs, one a device.  One lock covers lookup,
-    capture and replay: a graph's static buffers serve one call at a time."""
+class _Graphs(cuda_graphs.Graphs):
+    """``optimize``'s CUDA graphs, one a device."""
 
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.devices = {}
+    def new_device(self, device: torch.device) -> cuda_graphs.Device:
+        return _Device(device)
 
     def replay(self, key: tuple, g: PoseGraph, args: tuple):
         """(outputs, whether this call captured) of the call's replay, or
-        None where the call runs eagerly: its key is not the device's
-        graph's, and has come fewer than ``CAPTURE_AT`` times in a row."""
-        with self.lock:
-            dev = self.devices.get(key[0])
-            if dev is None:
-                dev = self.devices[key[0]] = _Device(key[0])
-            dev.run = dev.run + 1 if key == dev.last else 1
-            dev.last = key
-            captured = key != dev.key
-            if captured:
-                if dev.run < CAPTURE_AT:
-                    return None
-                if dev.graph is not None:
-                    # Its last replay ends before its memory is freed.
-                    dev.done.synchronize()
-                    dev.key = dev.graph = None
-                dev.graph, dev.key = _Graph(g, args, dev), key
-            return dev.graph.replay(g), captured
+        None where the call runs eagerly (``cuda_graphs.Graphs.run``)."""
+        return self.run(key, g, lambda dev: _Graph(g, args, dev))
 
 
 _GRAPHS = _Graphs()

@@ -858,8 +858,12 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
     fetch.  ``stage_times`` keys: ``tracks_host``, ``rotation_avg``,
     ``triangulate_gate_host``, ``ba_solve``.  While a profiler records, each
     ``vo.ba_solve`` span of a one-device global solve counts ``ba.optimize``'s
-    ``solves``, ``lm_steps`` and ``cg_steps``, and ``lm_accepted``, the steps
-    that lowered the cost, read in the same fetch as the result."""
+    ``solves``, ``lm_steps``, ``cg_steps``, ``graph_replays`` and
+    ``graph_captures``, and ``lm_accepted``, the steps that lowered the cost,
+    read in the same fetch as the result.  The loop route's one-device
+    solves pass ``ba.optimize`` capacities, the next power of two of the
+    observation and landmark counts, so that the rounds of sequences of
+    one size replay one CUDA graph on the card."""
     dev = _device(device)
     with _staged(stage_times, "tracks_host"):
         obs_cam, obs_lm, obs_uv = build_tracks(batch, est, loop_links=loop_links)
@@ -881,7 +885,7 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
         n_valid = np.bincount(obs_lm[obs_ok], minlength=n_lm)
         return w2c, pts, obs_ok & (n_valid >= 2)[obs_lm]
 
-    def solve(w2c, pts, valid, iters, cg, delta, counts=None):
+    def solve(w2c, pts, valid, iters, cg, delta, counts=None, capacities=(None, None)):
         # Only camera 0 is fixed: pinning a second (noisy) camera would
         # anchor BA to its error; the scale gauge is a damped null direction.
         problem = ba_lib.BAProblem(
@@ -893,7 +897,9 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
 
             new_w2c, _, _ = ba_sharded.optimize_sharded(problem, iters, cg, 1e-4, delta, mesh=mesh)
             return np.linalg.inv(new_w2c.cpu().numpy())
-        new_w2c, _, costs = ba_lib.optimize(problem, iters, cg, 1e-4, delta, counts=counts)
+        new_w2c, _, costs = ba_lib.optimize(problem, iters, cg, 1e-4, delta, counts=counts,
+                                            obs_capacity=capacities[0],
+                                            lm_capacity=capacities[1])
         if not counts:
             return np.linalg.inv(new_w2c.cpu().numpy())
         # While a profiler records, the steps that lowered the cost come back
@@ -914,12 +920,19 @@ def refine_with_ba(poses: np.ndarray, batch: PairBatch, est: PairEstimates,
                     _put(ej, dev, torch.int64), _put(eR, dev, torch.float32),
                     _put(ew, dev, torch.float32))
                 cur[:, :3, :3] = Rw.cpu().numpy()
+        # Observations and landmarks padded to the next power of two of
+        # their counts: the sequences of one length and slot count fall in
+        # one bucket, so that their rounds replay one CUDA graph of global
+        # BA.  (The F x K observations that the batch's shape bounds cost
+        # 2.3x the unpadded device time on an H100 at 64 frames of 1000
+        # slots.)
+        capacities = (1 << (obs_lm.size - 1).bit_length(), 1 << (n_lm - 1).bit_length())
         for _ in range(int(loop_ba_rounds)):
             with _staged(stage_times, "triangulate_gate_host"):
                 w2c, pts, valid = gated_problem(cur)
             with _staged(stage_times, "ba_solve") as stage:
                 cur = solve(w2c, pts, valid, int(loop_ba_iters), int(loop_cg_iters),
-                            float(robust_delta), counts=stage)
+                            float(robust_delta), counts=stage, capacities=capacities)
         return cur
 
     with _staged(stage_times, "triangulate_gate_host"):

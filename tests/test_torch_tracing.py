@@ -281,7 +281,7 @@ def test_loop_propose_and_ba_solve_counts(monkeypatch):
             recount += c < prev
             prev = c
         assert r.counts == {"solves": 1, "lm_steps": iters, "cg_steps": iters * cg,
-                            "lm_accepted": recount}
+                            "graph_replays": 0, "graph_captures": 0, "lm_accepted": recount}
         assert 0 < recount <= iters
     p, (iters, cg, damping, delta), _ = solves[0]
     before, changed = p.poses, 0
